@@ -1,0 +1,119 @@
+"""Console entry point of the port (`signal-tpu-torch-test`; port of
+`signal_tpu/cli.py::test_main`).
+
+    python -m signal_tpu_torch.cli --config_file configs/RGBNT201/Signal.yml \\
+        TEST.WEIGHT path/to/Signal.pth MODEL.DEVICE cuda
+
+Runs on ``MODEL.DEVICE`` (``cuda`` unless the config or the command line
+says ``cpu``); asking for ``cuda`` where there is none raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import random
+
+import numpy as np
+import torch
+
+
+def resolve_device(name: str) -> torch.device:
+    """``MODEL.DEVICE`` → torch.device; 'cuda' without a card raises."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"MODEL.DEVICE={name!r} but torch sees no CUDA device; pass "
+            f"MODEL.DEVICE cpu to run on the CPU")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"MODEL.DEVICE={name!r}: the port runs on 'cuda' or 'cpu'")
+    return device
+
+
+def parse_spec_overrides(s: str) -> dict:
+    """'k=v,...' → ModelSpec override dict (ints/floats/bools coerced), the
+    CLI form of ``dataclasses.replace`` (tests and smokes run tiny specs)."""
+    def coerce(v: str):
+        if v in ("True", "False"):
+            return v == "True"
+        for cast in (int, float):
+            try:
+                return cast(v)
+            except ValueError:
+                pass
+        return v
+
+    out = {}
+    for kv in filter(None, s.split(",")):
+        k, _, v = kv.partition("=")
+        out[k.strip()] = coerce(v.strip())
+    return out
+
+
+def build_model_for_test(cfg, num_classes: int, camera_num: int, view_num: int = 1,
+                         spec_overrides: dict | None = None):
+    """→ (spec, model): a random-init ``Signal`` (seed SOLVER.SEED) with
+    TEST.WEIGHT loaded, on ``MODEL.DEVICE``, in eval mode. The class and
+    camera counts are the dataset's: the head and SIE shapes must match
+    the checkpoint."""
+    from signal_tpu_torch.models.signal_model import ModelSpec, init_signal
+
+    device = resolve_device(cfg.MODEL.DEVICE)
+    spec = ModelSpec.from_config(cfg, num_classes, camera_num, view_num)
+    if spec_overrides:
+        spec = dataclasses.replace(spec, **spec_overrides)
+    model = init_signal(spec, seed=cfg.SOLVER.SEED)
+
+    weight = cfg.TEST.WEIGHT
+    if weight:
+        if not weight.endswith((".pth", ".pt")):
+            raise ValueError(
+                f"TEST.WEIGHT={weight!r}: the port loads reference-named .pth/.pt "
+                f"state dicts; convert a JAX (orbax) checkpoint first with "
+                f"scripts/export_torch_checkpoint.py, which needs JAX")
+        from signal_tpu_torch.models.convert import load_reference_checkpoint
+
+        load_reference_checkpoint(model, weight)
+    return spec, model.to(device).eval()
+
+
+def test_main(argv=None):
+    """Evaluate on the config's query/gallery split → (cmc, mAP).
+    ``--shrink k=v,...`` replaces ModelSpec fields before init (the hook
+    tests use to shrink the model)."""
+    parser = argparse.ArgumentParser(description="Signal PyTorch-port testing")
+    parser.add_argument("--config_file", default="configs/RGBNT201/Signal.yml", type=str)
+    parser.add_argument("--shrink", default="",
+                        help="ModelSpec overrides k=v,... (smoke runs only)")
+    parser.add_argument("opts", default=None, nargs=argparse.REMAINDER)
+    args = parser.parse_args(argv)
+
+    from signal_tpu_torch.config import load_config
+
+    cfg = load_config(args.config_file if args.config_file else None, args.opts)
+    random.seed(cfg.SOLVER.SEED)
+    np.random.seed(cfg.SOLVER.SEED)
+    torch.manual_seed(cfg.SOLVER.SEED)
+
+    from signal_tpu_torch.data import make_dataloader
+    from signal_tpu_torch.engine.eval import do_inference
+    from signal_tpu_torch.utils.logger import setup_logger
+
+    out_dir = os.path.join(cfg.OUTPUT_DIR, cfg.ckpt_test_path)
+    logger = setup_logger("signal_tpu_torch", out_dir, if_train=False)
+
+    (_, _, val_loader, num_query, num_classes, camera_num,
+     view_num) = make_dataloader(cfg)
+    spec, model = build_model_for_test(cfg, num_classes, camera_num, view_num,
+                                       spec_overrides=parse_spec_overrides(args.shrink))
+    device = next(model.parameters()).device
+    logger.info("device: %s (%s)", device,
+                torch.cuda.get_device_name(device) if device.type == "cuda" else "host")
+    if cfg.TEST.WEIGHT:
+        logger.info("Loaded checkpoint %s", cfg.TEST.WEIGHT)
+    return do_inference(cfg, model, val_loader, num_query, device=device)
+
+
+if __name__ == "__main__":
+    test_main()

@@ -1,0 +1,152 @@
+"""Attention / norm / activation primitives (port of
+`signal_tpu/ops/attention.py`).
+
+Numerics follow the JAX package op for op:
+
+* a matmul takes its operands in the compute dtype and accumulates in
+  fp32, and its result is fp32 (JAX's ``preferred_element_type``);
+* LayerNorm and softmax run in fp32 and LayerNorm returns its input's
+  dtype;
+* fp32 compute means true fp32: nothing here turns TF32 on, and
+  :func:`true_fp32` turns it off where the JAX package asks for
+  ``Precision.HIGHEST``.
+
+Parameters live in modules named like the reference's torch model
+(``nn.MultiheadAttention``'s packed ``in_proj_weight [3D, D]``,
+``nn.LayerNorm``'s ``weight``/``bias``), so the functions here take those
+modules.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+@contextlib.contextmanager
+def true_fp32():
+    """Full-fp32 matmuls and cuDNN convolutions inside the block, whatever
+    the process-wide TF32 flags say; restores them on exit."""
+    mm, conv = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = mm
+        torch.backends.cudnn.allow_tf32 = conv
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` → fp32, with the operands as given (the compute dtype)
+    and fp32 accumulation. ``b`` is 2-D.
+
+    On the card a bf16 product runs on the tensor cores and writes its
+    fp32 accumulator (``out_dtype``); on the CPU the bf16 values are
+    widened first, which is exact (a product of two bf16 values fits in
+    fp32)."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    return a.float() @ b.float()
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """CLIP's QuickGELU: x * sigmoid(1.702 x)."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """fp32 LayerNorm over the last axis; returns x's original dtype."""
+    y = F.layer_norm(x.float(), x.shape[-1:], ln.weight.float(), ln.bias.float(), eps)
+    return y.to(x.dtype)
+
+
+def linear(weight: torch.Tensor, bias, x: torch.Tensor,
+           compute_dtype=torch.bfloat16, out_dtype=None) -> torch.Tensor:
+    """``x @ weightᵀ + bias`` (``weight`` is ``nn.Linear``'s ``[out, in]``):
+    operands in ``compute_dtype``, fp32 accumulation, bias added in fp32,
+    result fp32 unless ``out_dtype`` is given."""
+    y = matmul_f32(x.to(compute_dtype), weight.to(compute_dtype).t())
+    if bias is not None:
+        y = y + bias.float()
+    return y if out_dtype is None else y.to(out_dtype)
+
+
+def _attention_core(q, k, v, num_heads: int, compute_dtype=torch.bfloat16):
+    """Eager softmax attention. q [B, Lq, D], k/v [B, Lk, D] → fp32
+    [B, Lq, D]. q is scaled BEFORE the cast to the compute dtype
+    (`signal_tpu/ops/attention.py:83`); the kernel path scales after the
+    dot instead (`ops/flash_attention.py`)."""
+    B, Lq, D = q.shape
+    Lk = k.shape[1]
+    hd = D // num_heads
+    q = q.reshape(B, Lq, num_heads, hd).transpose(1, 2)
+    k = k.reshape(B, Lk, num_heads, hd).transpose(1, 2)
+    v = v.reshape(B, Lk, num_heads, hd).transpose(1, 2)
+    scale = 1.0 / math.sqrt(hd)
+    # operands rounded to the compute dtype, then multiplied in fp32:
+    # the exact value of a compute-dtype product with fp32 accumulation
+    qs = (q * scale).to(compute_dtype).float()
+    logits = qs @ k.to(compute_dtype).float().transpose(-1, -2)
+    probs = torch.softmax(logits, dim=-1)
+    out = probs.to(compute_dtype).float() @ v.to(compute_dtype).float()
+    return out.transpose(1, 2).reshape(B, Lq, D)
+
+
+def mha(attn: nn.Module, q_in: torch.Tensor, kv_in: torch.Tensor | None = None, *,
+        num_heads: int, compute_dtype=torch.bfloat16,
+        use_flash: bool = False) -> torch.Tensor:
+    """Multi-head (self or cross) attention over ``nn.MultiheadAttention``'s
+    packed layout: ``in_proj_weight [3D, D]``, ``in_proj_bias [3D]``,
+    ``out_proj.weight [D, D]``, ``out_proj.bias [D]``. ``use_flash`` routes
+    the core through :func:`signal_tpu_torch.ops.flash_attention.flash_attention`
+    (the CUDA kernel on the card)."""
+    if kv_in is None:
+        kv_in = q_in
+    wq, wk, wv = attn.in_proj_weight.chunk(3, dim=0)
+    bq, bk, bv = attn.in_proj_bias.chunk(3, dim=0)
+    q = linear(wq, bq, q_in, compute_dtype)
+    k = linear(wk, bk, kv_in, compute_dtype)
+    v = linear(wv, bv, kv_in, compute_dtype)
+    if use_flash:
+        from signal_tpu_torch.ops.flash_attention import flash_attention
+
+        out = flash_attention(q, k, v, num_heads=num_heads,
+                              compute_dtype=compute_dtype)
+    else:
+        out = _attention_core(q, k, v, num_heads, compute_dtype)
+    return linear(attn.out_proj.weight, attn.out_proj.bias, out, compute_dtype)
+
+
+class MultiheadAttentionParams(nn.Module):
+    """Parameter holder with ``nn.MultiheadAttention``'s names (the forward
+    is :func:`mha`)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        self.in_proj_bias = nn.Parameter(torch.empty(3 * dim))
+        self.out_proj = nn.Linear(dim, dim)
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        """`signal_tpu/ops/attention.py::init_mha`: xavier-uniform over the
+        packed in_proj, U(±1/√D) out_proj, zero biases."""
+        dim = self.in_proj_weight.shape[1]
+        bound = math.sqrt(6.0 / (dim + 3 * dim))
+        self.in_proj_weight.uniform_(-bound, bound, generator=gen)
+        self.out_proj.weight.uniform_(-1 / math.sqrt(dim), 1 / math.sqrt(dim), generator=gen)
+        self.in_proj_bias.zero_()
+        self.out_proj.bias.zero_()
+
+
+def trunc_normal_(t: torch.Tensor, gen: torch.Generator, std: float = 0.02) -> torch.Tensor:
+    """Truncated normal in (−2σ, 2σ) (timm's ``trunc_normal_``)."""
+    return nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=gen)
