@@ -7,21 +7,31 @@ Phases (any failure exits non-zero; nothing is caught):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every CUDA kernel of the port from ``signal_tpu_torch/csrc``,
      one nvcc per source, all started together;
-  3. kernels vs plain: each kernel's wrapper against its plain PyTorch
-     version on the card, at the main path's shapes and at odd ones, with
-     the tolerance stated; kernel, plain and library times (CUDA events);
-  4. slice: ``forward_eval`` of the flagship RGBNT201 model (CLIP ViT-B/16,
-     width 768, 12 heads, 256×128, SIE, SIM TOPK 80; random weights from a
-     seed) on B=128 random packed uint8 images, kernel path against the
-     plain-attention path (fp32 features; bf16 ViT-output cosines and SIM
-     mask agreement), 12 kernel launches per forward, ms/batch;
-  5. end to end: ``signal_tpu_torch.cli.test_main`` on
-     configs/synthetic/smoke.yml at full width → mAP/CMC. This is the
-     main path: every launch count is zeroed just before it and read
-     just after.
-Then it prints the kernel table as one JSON line, and as its last line
-``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
-It imports nothing of JAX or of the JAX package.
+  3. kernels vs plain: each kernel's wrapper (attention forward and
+     backward) against its plain PyTorch version on the card, at the main
+     paths' shapes and at odd ones, with the tolerance stated; kernel,
+     plain and library times (CUDA events);
+  4. eval slice: ``forward_eval`` of the flagship RGBNT201 model (CLIP
+     ViT-B/16, width 768, 12 heads, 256×128, SIE, SIM TOPK 80; random
+     weights from a seed) on B=128 random packed uint8 images, kernel path
+     against the plain-attention path (fp32 features; bf16 ViT-output
+     cosines and SIM mask agreement), 12 kernel launches per forward,
+     ms/batch;
+  5. eval end to end: ``signal_tpu_torch.cli.test_main`` on
+     configs/synthetic/smoke.yml at full width → mAP/CMC;
+  6. train slice: the flagship train step (GAM + LAM, Adam, IMS_PER_BATCH
+     64, remat) on random packed uint8 images and P×K labels: the kernel
+     path against the plain-attention path (fp32 loss and every gradient;
+     bf16 loss and per-tensor gradient cosines), 24 forward and 12
+     backward kernel launches per step, ms/step, samples/s, peak memory;
+  7. train end to end: ``signal_tpu_torch.cli.train_main`` on
+     configs/synthetic/smoke.yml at full width, two epochs and an eval →
+     finite loss and mAP.
+Phases 5 and 7 are the main paths: every launch count is zeroed just
+before each and read just after. Then the script prints the kernel table
+as one JSON line, and as its last line ``{"ok": true, "device": {...}}``.
+Details go to chiprun_out/chip_smoke.json. It imports nothing of JAX or of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -46,6 +57,14 @@ PEAKS = {
 
 FP32_TOL = dict(atol=2e-5, rtol=1e-4)   # summation order only
 BF16_ATOL = 1.6e-2                      # one bf16 ulp of |o| < 4 (2^-6)
+# the backward on randn q, k, v, g (hd 64, scale 1/8): dq, dk, dv are ~0.15
+# and peak at 2-3 (each row records max |want|). fp32: summation order
+# only. bf16: dS is rounded to bf16 before dQ/dK and every output is bf16,
+# so a different fp32 order may tip a value across a rounding boundary:
+# two bf16 ulps of |x| < 1 (2 · 2^-8) absolute, and rtol 1e-2 (one ulp is
+# 2^-8 to 2^-7 of the value) above that
+BWD_FP32_TOL = dict(atol=1e-4, rtol=1e-4)
+BWD_BF16_TOL = dict(atol=8e-3, rtol=1e-2)
 
 
 def log(msg: str) -> None:
@@ -83,6 +102,7 @@ def check_attention(torch, report, peaks):
     cases = [  # (name, B, Lq, Lk, D, H, dtype)
         ("main-bf16", 384, 129, 129, 768, 12, torch.bfloat16),
         ("main-fp32", 384, 129, 129, 768, 12, torch.float32),
+        ("train-bf16", 192, 129, 129, 768, 12, torch.bfloat16),
         ("cross-bf16", 128, 3, 384, 512, 8, torch.bfloat16),
         ("cross-fp32", 128, 3, 384, 512, 8, torch.float32),
         ("odd-bf16", 16, 9, 9, 384, 6, torch.bfloat16),
@@ -105,7 +125,7 @@ def check_attention(torch, report, peaks):
         ok = bool((err <= tol).all())
         row = {"shape": [B, Lq, Lk, D, H], "dtype": str(dt).split(".")[1],
                "max_abs_err": err.max().item(), "tolerance": tol_text}
-        if name.startswith("main"):
+        if name.startswith(("main", "train")):
             hd = D // H
             elt = q.element_size()
             nbytes = (2 * B * Lq * D + 2 * B * Lk * D) * elt      # q, k, v read; o written
@@ -128,6 +148,74 @@ def check_attention(torch, report, peaks):
                              f"max abs err {row['max_abs_err']} ({tol_text})")
         del q, k, v, got, want, err
     report["attention"] = rows
+    return rows
+
+
+def check_attention_bwd(torch, report, peaks):
+    """Phase 3: the attention backward kernel against its plain version."""
+    import torch.nn.functional as F
+
+    from signal_tpu_torch.ops.flash_attention import (
+        attention_bwd_cuda,
+        flash_attention_bwd_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = [  # (name, B, Lq, Lk, D, H, dtype): main = the train step's shape
+        ("main-bf16", 192, 129, 129, 768, 12, torch.bfloat16),
+        ("main-fp32", 192, 129, 129, 768, 12, torch.float32),
+        ("cross-bf16", 128, 3, 129, 512, 8, torch.bfloat16),
+        ("cross-fp32", 128, 40, 7, 512, 8, torch.float32),
+        ("odd-bf16", 16, 9, 9, 384, 6, torch.bfloat16),
+        ("odd-fp32", 16, 9, 9, 384, 6, torch.float32),
+    ]
+    rows = {}
+    for name, B, Lq, Lk, D, H, dt in cases:
+        q, g = (torch.randn(B, Lq, D, device="cuda", generator=gen).to(dt) for _ in "qg")
+        k, v = (torch.randn(B, Lk, D, device="cuda", generator=gen).to(dt) for _ in "kv")
+        got = attention_bwd_cuda(q, k, v, g, H)
+        torch.cuda.synchronize()
+        want = flash_attention_bwd_reference(q, k, v, g, H)
+        tol = BWD_FP32_TOL if dt == torch.float32 else BWD_BF16_TOL
+        tol_text = f"atol {tol['atol']} + rtol {tol['rtol']}"
+        errs = [(a.float() - b.float()).abs() for a, b in zip(got, want)]
+        ok = all(bool((e <= tol["atol"] + tol["rtol"] * b.float().abs()).all())
+                 for e, b in zip(errs, want))
+        row = {"shape": [B, Lq, Lk, D, H], "dtype": str(dt).split(".")[1],
+               "max_abs_err": max(e.max().item() for e in errs),
+               "max_abs_err_dq_dk_dv": [e.max().item() for e in errs],
+               "max_abs_want_dq_dk_dv": [b.float().abs().max().item() for b in want],
+               "tolerance": tol_text}
+        if name.startswith("main"):
+            hd = D // H
+            elt = q.element_size()
+            # q, g read and dq written (Lq); k, v read and dk, dv written (Lk)
+            nbytes = (3 * B * Lq * D + 4 * B * Lk * D) * elt
+            flops = 5 * 2 * B * H * Lq * Lk * hd                  # QKᵀ, dV, dP, dQ, dK
+            bw, bf16_peak, fp32_peak = peaks
+            t_bytes = nbytes / bw * 1e3
+            t_ops = flops / (bf16_peak if dt == torch.bfloat16 else fp32_peak) * 1e3
+            # the library yardstick: SDPA's backward alone on the same shapes
+            qh, kh, vh = (t.view(B, t.shape[1], H, hd).transpose(1, 2).detach().requires_grad_(True)
+                          for t in (q, k, v))
+            o = F.scaled_dot_product_attention(qh, kh, vh)
+            gh = g.view(B, Lq, H, hd).transpose(1, 2)
+            row.update(
+                ms=cuda_ms(torch, lambda: attention_bwd_cuda(q, k, v, g, H)),
+                plain_ms=cuda_ms(torch, lambda: flash_attention_bwd_reference(q, k, v, g, H),
+                                 iters=5),
+                library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+                    o, (qh, kh, vh), gh, retain_graph=True)),
+                bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+            del qh, kh, vh, o, gh
+        rows[name] = row
+        log(f"[kernel] attention_bwd {name}: {json.dumps(row)}")
+        if not ok:
+            raise SystemExit(f"attention_bwd {name} disagrees with its plain version: "
+                             f"max abs err {row['max_abs_err']} ({tol_text})")
+        del q, k, v, g, got, want, errs
+    report["attention_bwd"] = rows
     return rows
 
 
@@ -227,6 +315,163 @@ def check_slice(torch, report):
     del model
 
 
+def check_train_step(torch, report):
+    """Phase 6: the flagship train step, kernel path vs plain-attention path."""
+    from signal_tpu_torch.config import load_config
+    from signal_tpu_torch.data.augment import normalize_images
+    from signal_tpu_torch.engine.train import make_train_step
+    from signal_tpu_torch.losses import make_loss, total_train_loss
+    from signal_tpu_torch.models import signal_model as sm
+    from signal_tpu_torch.ops.attention import true_fp32
+    from signal_tpu_torch.ops.flash_attention import attention_bwd_cuda, attention_fwd_cuda
+    from signal_tpu_torch.solver import make_optimizer, schedule_coeffs, set_lr
+
+    cfg = load_config(str(REPO / "configs/RGBNT201/Signal.yml"))
+    B, C, K = cfg.SOLVER.IMS_PER_BATCH, 171, cfg.DATALOADER.NUM_INSTANCE
+    spec = sm.ModelSpec.from_config(cfg, num_classes=C, camera_num=4)
+    assert (B, spec.width, spec.layers, spec.num_heads, spec.topk, spec.use_flash, spec.remat,
+            spec.use_b, spec.stage) == (64, 768, 12, 12, 80, True, True, True,
+                                        "together_CLS_Patch"), spec
+    model = sm.init_signal(spec, seed=0).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    u8 = torch.randint(0, 256, (B, 3, 3, 256, 128), dtype=torch.uint8, device="cuda",
+                       generator=gen)
+    ids = torch.randperm(C, device="cuda", generator=gen)[:B // K]
+    pids = ids.repeat_interleave(K)                                # P×K: 8 ids × 8
+    cams = torch.randint(0, 4, (B,), device="cuda", generator=gen)
+    imgs = normalize_images(u8, cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD)
+    loss_fn = make_loss(cfg, C)
+    params = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    out = {}
+
+    def loss_and_grads(dtype: str, use_flash: bool):
+        model.load_state_dict(state0)        # the BNNecks' running stats move
+        model.spec = dataclasses.replace(spec, compute_dtype=dtype, use_flash=use_flash)
+        fwd, bwd = attention_fwd_cuda.launches, attention_bwd_cuda.launches
+        with true_fp32():
+            o = sm.forward_train(model, imgs, cams)
+            loss = total_train_loss(o, pids, loss_fn, gram_weight=cfg.MODEL.Gram_Loss_weight,
+                                    pat_weight=cfg.MODEL.PAT_Loss_weight)
+            grads = torch.autograd.grad(loss, [p for _, p in params], allow_unused=True)
+        torch.cuda.synchronize()
+        launched = (attention_fwd_cuda.launches - fwd, attention_bwd_cuda.launches - bwd)
+        want = (2 * spec.layers, spec.layers) if use_flash else (0, 0)
+        if launched != want:
+            raise SystemExit(f"train {dtype} use_flash={use_flash}: (fwd, bwd) launches "
+                             f"{launched}, want {want}")
+        return loss.item(), {n: (torch.zeros_like(p) if g is None else g)
+                             for (n, p), g in zip(params, grads)}
+
+    # fp32: the paths differ in where the scale is applied and in summation
+    # order; held per tensor by allclose(rtol 1e-3, atol 1e-4·max|g_plain|)
+    loss_k, g_k = loss_and_grads("float32", True)
+    loss_p, g_p = loss_and_grads("float32", False)
+    worst, zero = 0.0, []
+    for n in g_p:
+        a, b = g_k[n], g_p[n]
+        if b.norm().item() < 1e-6:
+            # analytically zero (SIM's W_q/W_k feed only the top-k; a bias
+            # in front of a BatchNorm): rounding noise on both paths
+            zero.append(n)
+            if a.norm().item() >= 1e-5:
+                raise SystemExit(f"fp32 gradient of {n}: zero on the plain path, "
+                                 f"norm {a.norm().item()} on the kernel path")
+            continue
+        scale = b.abs().max().item()
+        worst = max(worst, ((a - b).norm() / b.norm()).item())
+        if not torch.allclose(a, b, rtol=1e-3, atol=1e-4 * scale):
+            raise SystemExit(f"fp32 gradient of {n}: kernel path vs plain path max abs err "
+                             f"{(a - b).abs().max().item()} (max |g| {scale})")
+    out["fp32"] = {"loss_kernel": loss_k, "loss_plain": loss_p,
+                   "grad_max_rel_l2": worst, "n_grads": len(g_p), "zero_grads": zero}
+    log(f"[train] fp32 kernel vs plain path: {json.dumps(out['fp32'])}")
+    if not math.isclose(loss_k, loss_p, rel_tol=1e-5):
+        raise SystemExit(f"fp32 loss: kernel path {loss_k} vs plain path {loss_p} (rtol 1e-5)")
+    del g_k, g_p
+
+    # bf16: rounding points move; loss within 1e-2 relative, and every
+    # gradient that is not analytically zero at cosine > 0.99
+    loss_k, g_k = loss_and_grads("bfloat16", True)
+    loss_p, g_p = loss_and_grads("bfloat16", False)
+    cos = {n: torch.nn.functional.cosine_similarity(g_k[n].flatten().float(),
+                                                    g_p[n].flatten().float(), dim=0).item()
+           for n in g_p if n not in zero}
+    low = min(cos, key=cos.get)
+    out["bf16"] = {"loss_kernel": loss_k, "loss_plain": loss_p, "grad_cos_min": cos[low],
+                   "grad_cos_min_tensor": low, "n_grads": len(cos)}
+    log(f"[train] bf16 kernel vs plain path: {json.dumps(out['bf16'])}")
+    if not (math.isclose(loss_k, loss_p, rel_tol=1e-2) and cos[low] > 0.99):
+        raise SystemExit(f"bf16 train step: kernel path disagrees with the plain path: "
+                         f"{out['bf16']}")
+    del g_k, g_p
+
+    # the flagship step as configured (bf16, kernels, remat, device augment,
+    # Adam): launches, time, memory
+    model.load_state_dict(state0)
+    model.spec = spec
+    optimizer = make_optimizer(model, cfg)
+    set_lr(optimizer, *schedule_coeffs(cfg, 1))
+    step = make_train_step(model, cfg, C, optimizer, device_augment=True,
+                           gen=torch.Generator(device="cuda").manual_seed(4))
+    for _ in range(2):
+        step(u8, pids, cams)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = 5
+    attention_fwd_cuda.launches = attention_bwd_cuda.launches = 0
+    t0 = time.perf_counter()
+    losses = [step(u8, pids, cams)[0] for _ in range(n)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    out["bf16_step"] = {
+        "batch": B, "ms_per_step": ms, "samples_per_s": B / ms * 1e3,
+        "attention_fwd_launches_per_step": attention_fwd_cuda.launches / n,
+        "attention_bwd_launches_per_step": attention_bwd_cuda.launches / n,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "losses": [x.item() for x in losses]}
+    log(f"[train] flagship train step bf16 B={B}: {json.dumps(out['bf16_step'])}")
+    if (out["bf16_step"]["attention_fwd_launches_per_step"],
+            out["bf16_step"]["attention_bwd_launches_per_step"]) != (2 * spec.layers, spec.layers):
+        raise SystemExit(f"launches per step: {out['bf16_step']}")
+    if not all(math.isfinite(x) for x in out["bf16_step"]["losses"]):
+        raise SystemExit(f"non-finite train loss: {out['bf16_step']['losses']}")
+    report["train"] = out
+    del model, optimizer, step
+
+
+def run_train_path(torch, report):
+    """Phase 7: the train CLI end to end on the synthetic config."""
+    from signal_tpu_torch.cli import train_main
+    from signal_tpu_torch.ops.flash_attention import attention_bwd_cuda, attention_fwd_cuda
+
+    # checkpoints of the full-width model go to the git-ignored build tree
+    # and are removed after; the train log is kept in chiprun_out
+    work = REPO / "build" / "chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    attention_fwd_cuda.launches = attention_bwd_cuda.launches = 0
+    t0 = time.perf_counter()
+    state = train_main(["--config_file", str(REPO / "configs/synthetic/smoke.yml"),
+                        "MODEL.DEVICE", "cuda", "OUTPUT_DIR", str(work)])
+    torch.cuda.synchronize()
+    launches = {"attention_fwd": attention_fwd_cuda.launches,
+                "attention_bwd": attention_bwd_cuda.launches}
+    e2e = {"epochs": state.epoch, "loss": state.loss, "acc": state.acc, "mAP": state.mAP,
+           "rank1": float(state.cmc[0]) if state.cmc is not None else None,
+           "seconds": time.perf_counter() - t0, "launches": launches}
+    out = REPO / "chiprun_out" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    shutil.copy(work / "synthetic_run" / "train_log.txt", out / "train_log.txt")
+    shutil.rmtree(work)
+    log(f"[e2e] train_main synthetic: {json.dumps(e2e)}")
+    if not (math.isfinite(e2e["loss"]) and e2e["mAP"] is not None and math.isfinite(e2e["mAP"])):
+        raise SystemExit(f"non-finite train loss or mAP: {e2e}")
+    if min(launches.values()) == 0:
+        raise SystemExit(f"the train path left a kernel unlaunched: {launches}")
+    report["e2e_train"] = e2e
+    return launches
+
+
 def run_main_path(torch, report):
     """Phase 5: the test CLI end to end on the synthetic config."""
     from signal_tpu_torch.cli import test_main
@@ -278,7 +523,7 @@ def main() -> int:
     from signal_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    libs = _build.build(["attention_fwd"])
+    libs = _build.build(["attention_fwd", "attention_bwd"])
     report["build_s"] = time.perf_counter() - t0
     for lib in libs.values():
         for line in lib.with_suffix(".log").read_text().splitlines():
@@ -286,23 +531,30 @@ def main() -> int:
                 log(f"[build] {lib.name}: {line.strip()}")
     log(f"[build] {sorted(libs)} in {report['build_s']:.1f} s")
 
-    rows = check_attention(torch, report, peaks_for(name))
+    peaks = peaks_for(name)
+    rows = check_attention(torch, report, peaks)
+    bwd = check_attention_bwd(torch, report, peaks)
     check_slice(torch, report)
-    launches = run_main_path(torch, report)
+    eval_launches = run_main_path(torch, report)
+    check_train_step(torch, report)
+    train_launches = run_train_path(torch, report)
 
-    main_bf16, main_fp32 = rows["main-bf16"], rows["main-fp32"]
-    kernels = [{
-        "name": "attention_fwd", "route": "cuda",
-        "source": "signal_tpu_torch/csrc/attention_fwd.cu",
-        "replaces": "signal_tpu/ops/flash_attention.py:50",
-        "launches": launches,
-        "max_abs_err": main_bf16["max_abs_err"],
-        "max_abs_err_bf16": main_bf16["max_abs_err"],
-        "max_abs_err_fp32": main_fp32["max_abs_err"],
-        "ms": main_bf16["ms"], "plain_ms": main_bf16["plain_ms"],
-        "bound_ms": main_bf16["bound_ms"], "bound_by": main_bf16["bound_by"],
-        "library_ms": main_bf16["library_ms"],
-    }]
+    def entry(kernel, source, replaces, rows, launches):
+        bf16, fp32 = rows["main-bf16"], rows["main-fp32"]
+        return {"name": kernel, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": bf16["max_abs_err"],
+                "max_abs_err_bf16": bf16["max_abs_err"], "max_abs_err_fp32": fp32["max_abs_err"],
+                "ms": bf16["ms"], "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
+                "bound_by": bf16["bound_by"], "library_ms": bf16["library_ms"],
+                "shape": bf16["shape"], "ms_fp32": fp32["ms"], "bound_ms_fp32": fp32["bound_ms"]}
+
+    fwd = entry("attention_fwd", "signal_tpu_torch/csrc/attention_fwd.cu",
+                "signal_tpu/ops/flash_attention.py:50", rows, train_launches["attention_fwd"])
+    fwd.update(launches_eval=eval_launches, ms_train_shape=rows["train-bf16"]["ms"],
+               bound_ms_train_shape=rows["train-bf16"]["bound_ms"])
+    kernels = [fwd, entry("attention_bwd", "signal_tpu_torch/csrc/attention_bwd.cu",
+                          "signal_tpu/ops/flash_attention.py:123", bwd,
+                          train_launches["attention_bwd"])]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     out = REPO / "chiprun_out"

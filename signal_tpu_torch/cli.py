@@ -1,6 +1,7 @@
-"""Console entry point of the port (`signal-tpu-torch-test`; port of
-`signal_tpu/cli.py::test_main`).
+"""Console entry points of the port (`signal-tpu-torch-train`,
+`signal-tpu-torch-test`; port of `signal_tpu/cli.py`).
 
+    signal-tpu-torch-train --config_file configs/RGBNT201/Signal.yml MODEL.DEVICE cuda
     python -m signal_tpu_torch.cli --config_file configs/RGBNT201/Signal.yml \\
         TEST.WEIGHT path/to/Signal.pth MODEL.DEVICE cuda
 
@@ -78,6 +79,64 @@ def build_model_for_test(cfg, num_classes: int, camera_num: int, view_num: int =
     return spec, model.to(device).eval()
 
 
+def _seed(cfg) -> None:
+    random.seed(cfg.SOLVER.SEED)
+    np.random.seed(cfg.SOLVER.SEED)
+    torch.manual_seed(cfg.SOLVER.SEED)
+
+
+def train_main(argv=None):
+    """Train on the config's train split, evaluating every EVAL_PERIOD
+    epochs → the final :class:`signal_tpu_torch.engine.train.TrainState`.
+    ``--shrink k=v,...`` replaces ModelSpec fields before init;
+    ``--max_steps_per_epoch`` cuts each epoch short (smoke runs);
+    ``--resume`` continues from a checkpoint the loop wrote."""
+    parser = argparse.ArgumentParser(description="Signal PyTorch-port training")
+    parser.add_argument("--config_file", default="configs/RGBNT201/Signal.yml", type=str)
+    parser.add_argument("--shrink", default="",
+                        help="ModelSpec overrides k=v,... (smoke runs only)")
+    parser.add_argument("--max_steps_per_epoch", default=0, type=int,
+                        help="stop each epoch after this many steps (0: the whole epoch)")
+    parser.add_argument("--resume", default="", type=str,
+                        help="checkpoint (.pth) written by a train run, to continue from")
+    parser.add_argument("opts", default=None, nargs=argparse.REMAINDER)
+    args = parser.parse_args(argv)
+
+    from signal_tpu_torch.config import load_config
+
+    cfg = load_config(args.config_file if args.config_file else None, args.opts)
+    _seed(cfg)
+
+    from signal_tpu_torch.data import make_dataloader
+    from signal_tpu_torch.engine.train import do_train
+    from signal_tpu_torch.models.signal_model import ModelSpec, init_signal
+    from signal_tpu_torch.utils.logger import setup_logger
+
+    out_dir = os.path.join(cfg.OUTPUT_DIR, cfg.ckpt_save_path)
+    logger = setup_logger("signal_tpu_torch", out_dir, if_train=True)
+    device = resolve_device(cfg.MODEL.DEVICE)
+    logger.info("device: %s (%s)", device,
+                torch.cuda.get_device_name(device) if device.type == "cuda" else "host")
+    logger.info("Running with config:\n%s", cfg.dump())
+    if cfg.MODEL.PRETRAIN_PATH_CLIP or cfg.MODEL.PRETRAIN_PATH_T:
+        raise NotImplementedError(
+            "MODEL.PRETRAIN_PATH_CLIP: the CLIP ViT-B-16.pt importer is not ported "
+            "yet (ROADMAP Queue 1 item 3); the port trains from a seeded random init")
+
+    (train_loader, _, val_loader, num_query, num_classes, camera_num,
+     view_num) = make_dataloader(cfg)
+    logger.info("dataset: %s classes=%d cams=%d views=%d query=%d",
+                cfg.DATASETS.NAMES, num_classes, camera_num, view_num, num_query)
+    spec = ModelSpec.from_config(cfg, num_classes, camera_num, view_num)
+    overrides = parse_spec_overrides(args.shrink)
+    if overrides:
+        spec = dataclasses.replace(spec, **overrides)
+    model = init_signal(spec, seed=cfg.SOLVER.SEED).to(device)
+    return do_train(cfg, model, train_loader, val_loader, num_query, num_classes,
+                    device=device, max_steps_per_epoch=args.max_steps_per_epoch or None,
+                    resume_from=args.resume or None)
+
+
 def test_main(argv=None):
     """Evaluate on the config's query/gallery split → (cmc, mAP).
     ``--shrink k=v,...`` replaces ModelSpec fields before init (the hook
@@ -92,9 +151,7 @@ def test_main(argv=None):
     from signal_tpu_torch.config import load_config
 
     cfg = load_config(args.config_file if args.config_file else None, args.opts)
-    random.seed(cfg.SOLVER.SEED)
-    np.random.seed(cfg.SOLVER.SEED)
-    torch.manual_seed(cfg.SOLVER.SEED)
+    _seed(cfg)
 
     from signal_tpu_torch.data import make_dataloader
     from signal_tpu_torch.engine.eval import do_inference

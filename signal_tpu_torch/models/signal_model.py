@@ -1,25 +1,27 @@
-"""The Signal model, eval path (port of `signal_tpu/models/signal_model.py`).
+"""The Signal model (port of `signal_tpu/models/signal_model.py`).
 
 Shared CLIP ViT-B/16 encoder over the three modalities (folded into one
-[3B, …] batch, sample-major) → SIM → features before the BNNecks.
+[3B, …] batch, sample-major) → SIM → features before the BNNecks (eval),
+or → SIM, GAM/LAM and the BNNeck + classifier heads (training).
 
 The ``Signal`` module holds every parameter of the reference ``Signal``
 under the reference's state-dict names (`modeling/make_model.py` in
 maxingan2412/Signal; the keys `signal_tpu/models/clip_loader.py::
 export_reference_signal_state_dict` writes), so a reference checkpoint and
-a converted JAX tree both load with ``strict=True``. Eval reads the tower,
-the SIE table and SIM; the BNNecks, classifiers and AlignM (GAM/LAM) are
-held for the train slice.
+a converted JAX tree both load with ``strict=True``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from signal_tpu_torch.models.align import AlignM, align_forward
+from signal_tpu_torch.models.bnneck import BNNeck, bnneck_apply
 from signal_tpu_torch.models.sim import SIM, sim_forward
 from signal_tpu_torch.models.vit import VisionTransformer, vit_forward
 from signal_tpu_torch.ops.attention import trunc_normal_
@@ -51,8 +53,11 @@ class ModelSpec:
     sie_camera: bool = True
     sie_view: bool = False
     sie_coe: float = 1.0
+    stage: str = "together_CLS_Patch"   # MODEL.stageName: 'CLS' → GAM only
     compute_dtype: str = "bfloat16"
     use_flash: bool = False
+    remat: bool = True           # MODEL.REMAT: per-block recompute in the backward
+    remat_policy: str = "full"   # MODEL.REMAT_POLICY; only 'full' is ported
     miss: str = "nothing"        # TEST.MISS missing-modality eval pattern
 
     @classmethod
@@ -92,8 +97,11 @@ class ModelSpec:
             sie_camera=bool(cfg.MODEL.SIE_CAMERA),
             sie_view=bool(cfg.MODEL.SIE_VIEW),
             sie_coe=float(cfg.MODEL.SIE_COE),
+            stage=cfg.MODEL.stageName.strip(),
             compute_dtype=cfg.MODEL.COMPUTE_DTYPE,
             use_flash=bool(cfg.MODEL.USE_PALLAS_ATTENTION),
+            remat=bool(cfg.MODEL.REMAT),
+            remat_policy=str(cfg.MODEL.REMAT_POLICY),
             miss=str(cfg.TEST.MISS),
         )
 
@@ -118,42 +126,6 @@ class ModelSpec:
         return 0
 
 
-class BNNeck(nn.Module):
-    """BatchNorm1d's parameters and running stats (``weight``, ``bias``,
-    ``running_mean``, ``running_var``) without ``num_batches_tracked``,
-    which the JAX package does not carry."""
-
-    def __init__(self, dim: int):
-        super().__init__()
-        self.weight = nn.Parameter(torch.ones(dim))
-        self.bias = nn.Parameter(torch.zeros(dim))
-        self.register_buffer("running_mean", torch.zeros(dim))
-        self.register_buffer("running_var", torch.ones(dim))
-
-
-class DAS(nn.Module):
-    """Deformable offset sampler's parameters (`models/align.py::
-    init_das_params`): 1×1 query projection; offset net 1×1 conv → GELU →
-    depthwise 4×4/4 conv → GELU → 1×1 conv to one channel."""
-
-    def __init__(self, c: int, ksize: int = 4):
-        super().__init__()
-        self.proj_q = nn.Conv2d(c, c, 1)
-        self.conv_offset = nn.Sequential(
-            nn.Conv2d(c, c, 1), nn.GELU(),
-            nn.Conv2d(c, c, ksize, stride=ksize, groups=c), nn.GELU(),
-            nn.Conv2d(c, 1, 1, bias=False))
-
-
-class AlignM(nn.Module):
-    """GAM/LAM parameters; their forward runs only in training."""
-
-    def __init__(self, feat_dim: int):
-        super().__init__()
-        self.contra_temp = nn.Parameter(torch.tensor(0.07))
-        self.DAS_r, self.DAS_n, self.DAS_t = DAS(feat_dim), DAS(feat_dim), DAS(feat_dim)
-
-
 class ClipVisionEncoder(nn.Module):
     def __init__(self, spec: ModelSpec):
         super().__init__()
@@ -168,7 +140,7 @@ class ClipVisionEncoder(nn.Module):
 
 class Signal(nn.Module):
     """The reference ``Signal`` module's parameters; ``forward`` is
-    :func:`forward_eval`."""
+    :func:`forward_eval` and :func:`forward_train` the training forward."""
 
     def __init__(self, spec: ModelSpec):
         super().__init__()
@@ -196,7 +168,9 @@ class Signal(nn.Module):
 def init_signal(spec: ModelSpec, seed: int = 0) -> Signal:
     """A ``Signal`` on the CPU with random weights drawn from a
     ``torch.Generator(seed)``, with the JAX package's init distributions
-    (`init_signal_params`) for what eval reads; move it with ``.to``."""
+    (`init_signal_params`): classifiers N(0, 0.001), BNNecks ones and
+    zeros, DAS convs U(±1/√fan_in) with zero biases, ``contra_temp`` 0.07.
+    Move it with ``.to``."""
     gen = torch.Generator().manual_seed(seed)
     model = Signal(spec)
     with torch.no_grad():
@@ -209,10 +183,13 @@ def init_signal(spec: ModelSpec, seed: int = 0) -> Signal:
                 getattr(model, name).weight.normal_(0.0, 0.001, generator=gen)
         if spec.use_a:
             model.SIM.reset_parameters(gen)
+        if spec.use_b:
+            model.AlignM.reset_parameters(gen)
     return model.eval()
 
 
-def _encode(model: Signal, imgs: torch.Tensor, cam_label) -> Tuple[torch.Tensor, torch.Tensor]:
+def _encode(model: Signal, imgs: torch.Tensor, cam_label,
+            remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """imgs [B, 3(modal), 3(ch), H, W] → (patches [B, 3, L, D], cls [B, 3, D])."""
     spec = model.spec
     B = imgs.shape[0]
@@ -226,7 +203,8 @@ def _encode(model: Signal, imgs: torch.Tensor, cam_label) -> Tuple[torch.Tensor,
         cv3 = cv.repeat_interleave(3, dim=0)
     patches, cls = vit_forward(enc.base, x, cv3, num_heads=spec.num_heads,
                                compute_dtype=spec.cdtype, use_flash=spec.use_flash,
-                               stride=spec.stride_size)
+                               stride=spec.stride_size, remat=remat,
+                               remat_policy=spec.remat_policy)
     L, D = patches.shape[1], patches.shape[2]
     return patches.reshape(B, 3, L, D), cls.reshape(B, 3, D)
 
@@ -262,3 +240,40 @@ def forward_eval(model: Signal, imgs: Dict[str, torch.Tensor] | torch.Tensor,
     vars_total, _ = sim_forward(model.SIM, patches, cls, k=spec.topk,
                                 keep_ratio=spec.keep_ratio, compute_dtype=spec.cdtype)
     return torch.cat([ori, vars_total], dim=-1)
+
+
+def forward_train(model: Signal, imgs: Dict[str, torch.Tensor] | torch.Tensor,
+                  cam_label) -> Dict[str, Any]:
+    """Training forward (`signal_model.py:459-518`); updates the BNNecks'
+    running stats in place. → {'scores': [...], 'feats': [...],
+    'gam': scalar | None, 'lam': scalar | None, 'masks': {...} | None}.
+
+    (score, feat) pairs come in the reference's tuple order: DIRECT = 1 →
+    the concatenated CLS features [B, 3D]; DIRECT = 0 → one per modality
+    (r, n, t); then SIM's fused features when USE_A."""
+    spec = model.spec
+    patches, cls = _encode(model, _stack_modalities(imgs), cam_label, remat=spec.remat)
+    out: Dict[str, Any] = {"scores": [], "feats": [], "gam": None, "lam": None,
+                           "masks": None}
+    vars_total = None
+    if spec.use_a:
+        vars_total, out["masks"] = sim_forward(model.SIM, patches, cls, k=spec.topk,
+                                               keep_ratio=spec.keep_ratio,
+                                               compute_dtype=spec.cdtype)
+    if spec.use_b:
+        out["gam"], out["lam"] = align_forward(model.AlignM, patches, h=spec.h, w=spec.w,
+                                               stage=spec.stage)
+
+    def head(bn: str, classifier: str, feat: torch.Tensor) -> None:
+        fbn = bnneck_apply(getattr(model, bn), feat, training=True)
+        out["scores"].append(F.linear(fbn, getattr(model, classifier).weight))
+        out["feats"].append(feat)
+
+    if spec.direct:
+        head("bottleneck", "classifier", cls.reshape(cls.shape[0], -1))
+    else:
+        for i, m in enumerate(("r", "n", "t")):
+            head(f"bottleneck_{m}", f"classifier_{m}", cls[:, i])
+    if spec.use_a:
+        head("bottleneck_var", "classifier_var", vars_total)
+    return out

@@ -6,8 +6,11 @@
 Parameters carry the reference CLIP ``VisionTransformer``'s names
 (``conv1.weight``, ``transformer.resblocks.{i}.attn.in_proj_weight``, …),
 so a reference-named state dict loads as it is. The blocks run as a plain
-Python loop: eval needs none of the JAX tower's remat, scan, pipeline,
-sequence-parallel or MoE machinery.
+Python loop. In training, ``remat`` (MODEL.REMAT, policy 'full') wraps each
+block in ``torch.utils.checkpoint``: the backward recomputes the block
+from its input, as the JAX tower's ``jax.checkpoint`` does. The JAX
+tower's scan, pipeline, sequence-parallel and MoE machinery is not
+ported.
 
 bf16 rounding points follow the JAX tower exactly: the patch conv rounds
 its output to the compute dtype before the fp32 cast; the residual stream
@@ -19,11 +22,13 @@ proj is one compute-dtype product with fp32 accumulation.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from signal_tpu_torch.ops.attention import (
@@ -135,17 +140,30 @@ def embed_patches(vit: VisionTransformer, images: torch.Tensor, cv_emb=None, *,
 
 def vit_forward(vit: VisionTransformer, images: torch.Tensor, cv_emb=None, *,
                 num_heads: int = 12, compute_dtype=torch.bfloat16, use_flash: bool = False,
-                stride: int | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                stride: int | None = None, remat: bool = False,
+                remat_policy: str = "full") -> Tuple[torch.Tensor, torch.Tensor]:
     """images [B, 3, H, W] → (patch tokens [B, L, out], cls [B, out]), fp32.
 
     ``cv_emb`` [B, width]: SIE camera embedding, added to the CLS token
     only. ``use_flash``: each block's attention goes through the fused
-    kernel (one launch per block on the card)."""
+    kernel (one launch per block on the card, one more per block in the
+    remat recompute). ``remat``: under grad mode, each block is a
+    ``torch.utils.checkpoint`` whose backward recomputes it; only the
+    'full' policy (save nothing inside a block) is ported."""
+    if remat and remat_policy != "full":
+        raise NotImplementedError(
+            f"MODEL.REMAT_POLICY={remat_policy!r}: only 'full' is ported; the "
+            f"other policies are ROADMAP Queue 1 item 8")
     x = embed_patches(vit, images, cv_emb, stride=stride, compute_dtype=compute_dtype)
     x = x.to(compute_dtype)
+    checkpointed = remat and torch.is_grad_enabled()
     for blk in vit.transformer.resblocks:
-        x = _block(blk, x, num_heads=num_heads, compute_dtype=compute_dtype,
-                   use_flash=use_flash)
+        fn = functools.partial(_block, blk, num_heads=num_heads, compute_dtype=compute_dtype,
+                               use_flash=use_flash)
+        if checkpointed:
+            x = torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False)
+        else:
+            x = fn(x)
     x_post = layer_norm(vit.ln_post, x)
     x_proj = matmul_f32(x_post.to(compute_dtype), vit.proj.to(compute_dtype))
     return x_proj[:, 1:], x_proj[:, 0]

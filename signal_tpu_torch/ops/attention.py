@@ -41,20 +41,55 @@ def true_fp32():
         torch.backends.cudnn.allow_tf32 = conv
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """2-D ``a @ b`` of two bf16 matrices → fp32, fp32 accumulation. On the
+    card the tensor cores write their fp32 accumulator (``out_dtype``); on
+    the CPU the bf16 values are widened first, which is exact (a product
+    of two bf16 values fits in fp32)."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _MatmulF32(torch.autograd.Function):
+    """bf16 × bf16 → fp32 product with the VJP of JAX's
+    ``dot_general(bf16, bf16, preferred_element_type=f32)``: the fp32
+    cotangent is dotted with the other bf16 operand, accumulating in fp32,
+    and the result is rounded to bf16, the operand's gradient (the cast
+    in front of the product then widens it).
+
+    On the CPU the fp32 cotangent enters the product as it is, as in the
+    JAX package on the CPU. On the card it is rounded to bf16 first and
+    the product runs on the tensor cores, as XLA's DEFAULT precision does
+    on the TPU."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        out = _mm_f32(a.reshape(-1, a.shape[-1]), b)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        a2, g2 = a.reshape(-1, a.shape[-1]), g.reshape(-1, g.shape[-1])
+        if g.is_cuda:
+            g2 = g2.to(b.dtype)
+            da = _mm_f32(g2, b.t())
+            db = _mm_f32(a2.t(), g2)
+        else:
+            da = g2 @ b.float().t()
+            db = a2.float().t() @ g2
+        return da.to(a.dtype).reshape(a.shape), db.to(b.dtype)
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` → fp32, with the operands as given (the compute dtype)
-    and fp32 accumulation. ``b`` is 2-D.
-
-    On the card a bf16 product runs on the tensor cores and writes its
-    fp32 accumulator (``out_dtype``); on the CPU the bf16 values are
-    widened first, which is exact (a product of two bf16 values fits in
-    fp32)."""
+    and fp32 accumulation. ``b`` is 2-D. An fp32 product is a plain one
+    (true fp32 under :func:`true_fp32`); a bf16 one is :class:`_MatmulF32`."""
     if a.dtype == torch.float32:
         return a @ b
-    if a.is_cuda:
-        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
-        return out.reshape(*a.shape[:-1], b.shape[-1])
-    return a.float() @ b.float()
+    return _MatmulF32.apply(a, b)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:

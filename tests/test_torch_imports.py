@@ -12,7 +12,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "signal_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_eval.py"]
+    REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_eval.py",
+    REPO / "scripts" / "profile_torch_train.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -49,7 +50,8 @@ def test_importing_the_port_loads_neither_jax_nor_signal_tpu():
         "    importlib.import_module(m.name)\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(n for n in new if n.split('.')[0] in ('jax', 'jaxlib', 'signal_tpu'))\n"
-        "assert 'signal_tpu_torch.cli' in new and 'signal_tpu_torch.engine.eval' in new\n"
+        "assert {'signal_tpu_torch.cli', 'signal_tpu_torch.engine.eval',\n"
+        "        'signal_tpu_torch.engine.train', 'signal_tpu_torch.solver'} <= new\n"
         "print('BAD', bad)\n")
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
