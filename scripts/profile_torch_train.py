@@ -42,6 +42,7 @@ REPO = Path(__file__).resolve().parent.parent
 # kernel-name substrings → kind, first match wins
 KINDS = (
     ("attention_fwd", "attention forward kernel (csrc/attention_fwd.cu)"),
+    ("attention_bwd", "attention backward kernel (csrc/attention_bwd.cu)"),
     ("rows_kernel", "attention backward kernel (csrc/attention_bwd.cu)"),
     ("cols_kernel", "attention backward kernel (csrc/attention_bwd.cu)"),
     ("gemm", "GEMM"), ("nvjet", "GEMM"), ("xmma", "GEMM"), ("cutlass", "GEMM"),

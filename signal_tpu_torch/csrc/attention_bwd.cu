@@ -15,9 +15,45 @@
 // every output is rounded to the operand dtype once. rowsum(dP o P) is
 // computed from dP and P themselves: FlashAttention-2's shortcut
 // rowsum(dO o O) does not hold here, where P and O are rounded to bf16.
+// Heads are column blocks hd wide of the [B, L, D] layout, read by stride:
+// there is no transpose.
 //
-// dQ reduces over keys, dK and dV over query rows. So the work is split in
-// two kernels that need no atomics and sum in a fixed order:
+// bf16: `attention_bwd_mma_kernel`, one fused kernel on the tensor cores.
+// At the ViT-B shape ([3B/2 = 192, 129, 768], 12 heads of 64) a launch
+// moves 266 MB and does 24.5 GFLOP unpadded, so device memory bounds it
+// (0.080 ms at 3.35 TB/s). The CUDA-core design it replaces did its dots
+// with scalar fmaf, one warp per row, and ran 7 products in two kernels
+// with a statistics scratch: 39x its bound. This one is the TPU kernel's
+// structure: one block per (batch row, head) owns the whole head, runs the
+// 5 products with mma.sync m16n8k16 (bf16 in, fp32 accumulation) and sums
+// every output in a fixed order, without atomics or a second launch.
+//   1. cp.async stages Q, G (Lq x hd) and K, V (Lk x hd) in shared memory,
+//      zero-filled to multiples of 16 rows and columns, rows padded so that
+//      ldmatrix is free of bank conflicts.
+//   2. Warp w takes query rows 16w .. 16w+15 and holds the fp32 S = Q.K^T
+//      and dP = G.V^T of all its keys in registers (16 x 144 each at
+//      L = 129, one pass over hd), does the softmax with quad shuffles
+//      (keys >= Lk masked to -inf; P = e times the reciprocal of sum e;
+//      rows >= Lq zeroed: a zero Q row would give a uniform P), then delta
+//      and dS, and dQ = round(dS).K with round(dS) taken straight from the
+//      registers as A fragments. Past 144 keys (up to 160) S and dP do not
+//      both fit the 168 registers a thread of a 9-10 warp block gets: the
+//      warp holds P and computes dP by pairs of key tiles twice, once for
+//      delta and once for dS.
+//   3. After a barrier, round(P) and round(dS) go to shared memory in the
+//      place K and V held, so the peak is Q, G, P and dS (129 KB at the main
+//      shape; 190 KB at hd = 128, L = 160).
+//   4. Warp w takes key rows 16w .. 16w+15: dV = round(P)^T.G and
+//      dK = round(dS)^T.Q, both operands through ldmatrix.trans.
+// A warp holds one 16-row tile in each phase and a whole key row in
+// registers, so Lq, Lk <= 16 kMmaWarps (160): the wrapper raises beyond.
+// One block fills an SM (shared memory and registers), so its staging and
+// its math do not overlap: at the main shape the math is most of the
+// time. wgmma/TMA and a persistent grid that stages the next head during
+// this one's math are later work.
+//
+// fp32: two CUDA-core kernels that need no atomics and sum in a fixed
+// order. fp32 stays off the tensor cores: there they would run TF32.
 //
 //   rows_kernel  one block per (batch row, head, tile of query rows); it
 //                stages the head's K and V in shared memory, and each warp
@@ -30,52 +66,28 @@
 //                same dot products in the same order, so the same P), then
 //                dP, dS, dV and dK.
 //
-// Heads are column blocks hd wide of the [B, L, D] layout, read by stride
-// with 16-byte loads: there is no transpose. Lanes take rows j, j + 32, ...
-// of the staged operand and stop at its length, so the ragged tail (129)
-// needs no padding; the staged rows are padded by 16 bytes so that the
-// lanes of a warp, each on its own row, read distinct banks. The dot
-// products run on the CUDA cores in fp32: this first version is bound by
-// its on-chip work, not by device memory (tensor cores are later work).
+// Lanes take rows j, j + 32, ... of the staged operand and stop at its
+// length; the staged rows are padded by 16 bytes so that the lanes of a
+// warp, each on its own row, read distinct banks. The dots run in fp32 on
+// the CUDA cores, so on-chip work bounds these kernels, not memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as XLA's convert
-}
-
-// x rounded to the operand dtype and widened again
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
-}
-
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  __nv_bfloat162 r;
-  r.x = __float2bfloat16(a);
-  r.y = __float2bfloat16(b);
-  *reinterpret_cast<__nv_bfloat162*>(p) = r;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -90,46 +102,37 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __host__ __device__ __forceinline__ int round_up4(int n) { return (n + 3) & ~3; }
 
-// fp32 row x (shared, hd floats) dotted with a staged operand-dtype row,
-// ascending over the columns; both kernels use it for the logits and for
-// dP, so the two recompute the same values
-template <typename T>
-__device__ __forceinline__ float dot_row(const float* x, const T* row, int hd) {
-  constexpr int kVec = 16 / sizeof(T);
+// row x (shared, hd floats) dotted with a staged row, ascending over the
+// columns; both kernels use it for the logits and for dP, so the two
+// recompute the same values
+__device__ __forceinline__ float dot_row(const float* x, const float* row, int hd) {
   float acc = 0.f;
-  for (int c = 0; c < hd; c += kVec) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(row + c);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int u = 0; u < kVec; u += 4) {
-      const float4 xx = *reinterpret_cast<const float4*>(x + c + u);
-      acc = fmaf(xx.x, to_float(e[u]), acc);
-      acc = fmaf(xx.y, to_float(e[u + 1]), acc);
-      acc = fmaf(xx.z, to_float(e[u + 2]), acc);
-      acc = fmaf(xx.w, to_float(e[u + 3]), acc);
-    }
+  for (int c = 0; c < hd; c += 4) {
+    const float4 rr = *reinterpret_cast<const float4*>(row + c);
+    const float4 xx = *reinterpret_cast<const float4*>(x + c);
+    acc = fmaf(xx.x, rr.x, acc);
+    acc = fmaf(xx.y, rr.y, acc);
+    acc = fmaf(xx.z, rr.z, acc);
+    acc = fmaf(xx.w, rr.w, acc);
   }
   return acc;
 }
 
 // Stage n rows of the head's column block (hd wide, row stride D in src)
-// into dst with row stride hd + kVec.
-template <typename T>
-__device__ __forceinline__ void stage(T* dst, const T* src, int n, int hd, int D) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int vecs = hd / kVec;
+// into dst with row stride hd + 4, 16 bytes per thread per step.
+__device__ __forceinline__ void stage(float* dst, const float* src, int n, int hd, int D) {
+  const int vecs = hd / 4;
   for (int i = threadIdx.x; i < n * vecs; i += kThreads) {
     const int r = i / vecs;
-    const int c = (i - r * vecs) * kVec;
-    *reinterpret_cast<uint4*>(dst + (size_t)r * (hd + kVec) + c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
+    const int c = (i - r * vecs) * 4;
+    *reinterpret_cast<float4*>(dst + (size_t)r * (hd + 4) + c) =
+        *reinterpret_cast<const float4*>(src + (size_t)r * D + c);
   }
 }
 
 // out[d], out[d + 1] for the lane's column pairs d = 2 lane + 64 t:
 // sum_j w[j] * S[j][d], over n staged rows S (row stride `stride`)
-template <typename T>
-__device__ __forceinline__ float2 weighted_rows(const float* w, const T* S, int n, int stride,
+__device__ __forceinline__ float2 weighted_rows(const float* w, const float* S, int n, int stride,
                                                 int d) {
   float a0 = 0.f, a1 = 0.f;
   int j = 0;
@@ -152,30 +155,27 @@ __device__ __forceinline__ float2 weighted_rows(const float* w, const T* S, int 
   return make_float2(a0, a1);
 }
 
-// Shared memory of either kernel (dynamic), in this order, with n the
-// staged length (Lk for rows_kernel, Lq for cols_kernel) and m the other:
-//   A, B  [n][hd + kVec]              operand dtype: (K, V) or (Q, G)
-//   x, y  [kWarps][hd]                fp32, the warp's current rows
-//   s, t  [kWarps][round_up4(n)]      fp32, the warp's P and dP / dS
-template <typename T>
+// Shared memory of either kernel (dynamic), in this order, all fp32, with
+// n the staged length (Lk for rows_kernel, Lq for cols_kernel):
+//   A, B  [n][hd + 4]                 (K, V) or (Q, G)
+//   x, y  [kWarps][hd]                the warp's current rows
+//   s, t  [kWarps][round_up4(n)]      the warp's P and dP / dS
 size_t smem_bytes(int n, int hd) {
-  constexpr int kVec = 16 / sizeof(T);
-  return 2 * (size_t)n * (hd + kVec) * sizeof(T) + 2 * (size_t)kWarps * hd * sizeof(float) +
-         2 * (size_t)kWarps * round_up4(n) * sizeof(float);
+  return (2 * (size_t)n * (hd + 4) + 2 * (size_t)kWarps * hd +
+          2 * (size_t)kWarps * round_up4(n)) * sizeof(float);
 }
 
 // stats: [3][B * H * Lq] fp32 = (row max of the logits, sum of exp, delta)
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            const T* __restrict__ g, T* __restrict__ dq, float* __restrict__ stats,
-            int B, int H, int Lq, int Lk, int hd, int rows_per_block, float scale) {
-  constexpr int kVec = 16 / sizeof(T);
+rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ g, float* __restrict__ dq,
+            float* __restrict__ stats, int B, int H, int Lq, int Lk, int hd,
+            int rows_per_block, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int stride = hd + kVec;
+  const int stride = hd + 4;
   const int p_stride = round_up4(Lk);
-  T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = Ks + (size_t)Lk * stride;
+  float* Ks = reinterpret_cast<float*>(smem);
+  float* Vs = Ks + (size_t)Lk * stride;
   float* qrow = reinterpret_cast<float*>(Vs + (size_t)Lk * stride);
   float* grow = qrow + kWarps * hd;
   float* prow = grow + kWarps * hd;
@@ -202,8 +202,8 @@ rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   for (int row = row0 + warp; row < row1; row += kWarps) {
     const size_t off = ((size_t)b * Lq + row) * D + (size_t)h * hd;
     for (int d = lane; d < hd; d += 32) {
-      qrow[d] = to_float(q[off + d]);
-      grow[d] = to_float(g[off + d]);
+      qrow[d] = q[off + d];
+      grow[d] = g[off + d];
     }
     __syncwarp();
 
@@ -230,11 +230,11 @@ rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
       delta = fmaf(srow[j], p, delta);
     }
     delta = warp_sum(delta);
-    // dS in place of dP, rounded to the operand dtype for the dQ product
-    for (int j = lane; j < Lk; j += 32) srow[j] = round_to<T>(prow[j] * (srow[j] - delta));
+    // dS in place of dP
+    for (int j = lane; j < Lk; j += 32) srow[j] = prow[j] * (srow[j] - delta);
     __syncwarp();
 
-    T* dst = dq + off;
+    float* dst = dq + off;
     for (int d = 2 * lane; d < hd; d += 64) {
       const float2 acc = weighted_rows(srow, Ks, Lk, stride, d);
       store2(dst + d, acc.x * scale, acc.y * scale);
@@ -249,18 +249,16 @@ rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-cols_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            const T* __restrict__ g, T* __restrict__ dk, T* __restrict__ dv,
-            const float* __restrict__ stats, int B, int H, int Lq, int Lk, int hd,
-            int cols_per_block, float scale) {
-  constexpr int kVec = 16 / sizeof(T);
+cols_kernel(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ g, float* __restrict__ dk,
+            float* __restrict__ dv, const float* __restrict__ stats, int B, int H, int Lq,
+            int Lk, int hd, int cols_per_block, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int stride = hd + kVec;
+  const int stride = hd + 4;
   const int p_stride = round_up4(Lq);
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* Gs = Qs + (size_t)Lq * stride;
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Gs = Qs + (size_t)Lq * stride;
   float* krow = reinterpret_cast<float*>(Gs + (size_t)Lq * stride);
   float* vrow = krow + kWarps * hd;
   float* pcol = vrow + kWarps * hd;
@@ -290,8 +288,8 @@ cols_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   for (int col = col0 + warp; col < col1; col += kWarps) {
     const size_t off = ((size_t)b * Lk + col) * D + (size_t)h * hd;
     for (int d = lane; d < hd; d += 32) {
-      krow[d] = to_float(k[off + d]);
-      vrow[d] = to_float(v[off + d]);
+      krow[d] = k[off + d];
+      vrow[d] = v[off + d];
     }
     __syncwarp();
 
@@ -300,8 +298,8 @@ cols_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
       const float logit = dot_row(krow, Qs + (size_t)i * stride, hd) * scale;
       const float p = expf(logit - row_max[i]) / row_sum[i];
       const float dp = dot_row(vrow, Gs + (size_t)i * stride, hd);
-      pcol[i] = round_to<T>(p);
-      scol[i] = round_to<T>(p * (dp - row_delta[i]));
+      pcol[i] = p;
+      scol[i] = p * (dp - row_delta[i]);
     }
     __syncwarp();
 
@@ -315,45 +313,278 @@ cols_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
-           void* dv, float* stats, int B, int H, int Lq, int Lk, int hd, int rows_per_block,
-           int cols_per_block, float scale, cudaStream_t stream) {
-  const size_t smem_rows = smem_bytes<T>(Lk, hd);
-  const size_t smem_cols = smem_bytes<T>(Lq, hd);
-  cudaError_t err = cudaFuncSetAttribute(rows_kernel<T>,
+// query (or key) rows per block of the fp32 kernels: a whole short
+// sequence in one tile, so each block reads its staged operands once
+int rows_per_tile(int n) {
+  const int tiles = (n + 255) / 256;
+  return (n + tiles - 1) / tiles;
+}
+
+int launch_fp32(const void* q, const void* k, const void* v, const void* g, void* dq,
+                void* dk, void* dv, float* stats, int B, int H, int Lq, int Lk, int hd,
+                float scale, cudaStream_t stream) {
+  const int rows_per_block = rows_per_tile(Lq);
+  const int cols_per_block = rows_per_tile(Lk);
+  const size_t smem_rows = smem_bytes(Lk, hd);
+  const size_t smem_cols = smem_bytes(Lq, hd);
+  cudaError_t err = cudaFuncSetAttribute(rows_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem_rows);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(cols_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(cols_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_cols);
   if (err != cudaSuccess) return (int)err;
-  const T* qq = static_cast<const T*>(q);
-  const T* kk = static_cast<const T*>(k);
-  const T* vv = static_cast<const T*>(v);
-  const T* gg = static_cast<const T*>(g);
+  const float* qq = static_cast<const float*>(q);
+  const float* kk = static_cast<const float*>(k);
+  const float* vv = static_cast<const float*>(v);
+  const float* gg = static_cast<const float*>(g);
   const dim3 grid_rows((unsigned)(B * H), (unsigned)((Lq + rows_per_block - 1) / rows_per_block));
-  rows_kernel<T><<<grid_rows, kThreads, smem_rows, stream>>>(
-      qq, kk, vv, gg, static_cast<T*>(dq), stats, B, H, Lq, Lk, hd, rows_per_block, scale);
+  rows_kernel<<<grid_rows, kThreads, smem_rows, stream>>>(
+      qq, kk, vv, gg, static_cast<float*>(dq), stats, B, H, Lq, Lk, hd, rows_per_block, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid_cols((unsigned)(B * H), (unsigned)((Lk + cols_per_block - 1) / cols_per_block));
-  cols_kernel<T><<<grid_cols, kThreads, smem_cols, stream>>>(
-      qq, kk, vv, gg, static_cast<T*>(dk), static_cast<T*>(dv), stats, B, H, Lq, Lk, hd,
-      cols_per_block, scale);
+  cols_kernel<<<grid_cols, kThreads, smem_cols, stream>>>(
+      qq, kk, vv, gg, static_cast<float*>(dk), static_cast<float*>(dv), stats, B, H, Lq, Lk,
+      hd, cols_per_block, scale);
   return (int)cudaGetLastError();
+}
+
+// ---- bf16: the fused tensor-core kernel ----------------------------------
+
+using mma::bf16;
+
+constexpr int kMmaWarps = 10;                 // 16-row tiles per block
+constexpr int kMmaMaxLen = 16 * kMmaWarps;    // Lq, Lk it takes
+// key n-tiles of 8 that a warp holds as S and dP together: 144 keys cover
+// the ViT's 129. Up to kMmaMaxLen keys it holds P and recomputes dP.
+constexpr int kRowTiles = 18;
+
+// Shared memory (dynamic), in this order:
+//   Qs, Gs  [round16(Lq)][padded(hd)]      the whole kernel
+//   Ks, Vs  [round16(Lk)][padded(hd)]      phase 1, then in their place
+//   Ps, dSs [round16(Lq)][padded(Lk)]      phase 2: round(P), round(dS)
+size_t mma_smem_bytes(int Lq, int Lk, int hd) {
+  const size_t qg = 2 * (size_t)mma::round16(Lq) * mma::padded(hd);
+  const size_t kv = 2 * (size_t)mma::round16(Lk) * mma::padded(hd);
+  const size_t pds = 2 * (size_t)mma::round16(Lq) * mma::padded(Lk);
+  return (qg + (kv > pds ? kv : pds)) * sizeof(bf16);
+}
+
+// NT: key n-tiles of 8 a warp holds in registers (8 NT >= round16(Lk))
+template <int NT>
+__global__ void __launch_bounds__(kMmaWarps * 32, 1)
+attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ g,
+                         bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                         int H, int Lq, int Lk, int hd, float scale) {
+  using namespace mma;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int LQP = round16(Lq), LKP = round16(Lk), HDP = round16(hd);
+  const int so = padded(hd), sp = padded(Lk);
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Gs = Qs + LQP * so;
+  bf16* Ks = Gs + LQP * so;
+  bf16* Vs = Ks + LKP * so;
+  bf16* Ps = Ks;
+  bf16* dSs = Ps + LQP * sp;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x - b * H;
+  const int D = H * hd;
+  const size_t qoff = (size_t)b * Lq * D + (size_t)h * hd;
+  const size_t koff = (size_t)b * Lk * D + (size_t)h * hd;
+  stage_async(Qs, q + qoff, Lq, LQP, hd, D);
+  stage_async(Gs, g + qoff, Lq, LQP, hd, D);
+  stage_async(Ks, k + koff, Lk, LKP, hd, D);
+  stage_async(Vs, v + koff, Lk, LKP, hd, D);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;
+  const int tq = lane & 3;
+  const int nkt = LKP / 16;             // key k-steps of 16
+  const int r0 = warp * 16;             // the warp's query rows (phase 1)
+  uint32_t pb[NT][2], sb[NT][2];        // round(P), round(dS): rows gr, gr + 8
+
+  if (r0 < LQP) {
+    // P: the fp32 softmax of the logits, rows >= Lq zeroed (a zero-filled
+    // Q row has logits 0, hence a uniform P that would leak into dK, dV)
+    float s[NT][4], dp[NT][4];
+    if constexpr (NT <= kRowTiles)
+      dot_nt2(s, dp, Qs, Ks, Gs, Vs, so, r0, LKP, HDP, lane);
+    else
+      dot_nt(s, Qs, Ks, so, r0, 0, LKP, HDP, lane);
+    scale_mask(s, 0, Lk, scale, lane);
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j >= 2 * nkt) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
+    mx[0] = quad_max(mx[0]);
+    mx[1] = quad_max(mx[1]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j >= 2 * nkt) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - mx[e >> 1]);
+        sum[e >> 1] += s[j][e];
+      }
+    }
+    const bool live[2] = {r0 + gr < Lq, r0 + gr + 8 < Lq};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] = quad_sum(sum[i]);  // every lane shuffles, dead rows too
+      sum[i] = live[i] ? 1.f / sum[i] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= sum[e >> 1];
+
+    // dP = G . V^T in fp32, delta = rowsum(dP o P), dS = P o (dP - delta)
+    float delta[2] = {0.f, 0.f};
+    if constexpr (NT <= kRowTiles) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (j >= 2 * nkt) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) delta[e >> 1] = fmaf(dp[j][e], s[j][e], delta[e >> 1]);
+      }
+      delta[0] = quad_sum(delta[0]);
+      delta[1] = quad_sum(delta[1]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        sb[j][0] = pack(s[j][0] * (dp[j][0] - delta[0]), s[j][1] * (dp[j][1] - delta[0]));
+        sb[j][1] = pack(s[j][2] * (dp[j][2] - delta[1]), s[j][3] * (dp[j][3] - delta[1]));
+      }
+    } else {
+      // P and dP together do not fit the registers: dP by pairs of
+      // n-tiles, once for delta and once more for dS
+#pragma unroll
+      for (int jp = 0; jp < NT / 2; ++jp) {
+        if (jp >= nkt) continue;
+        float d[2][4];
+        dot_nt(d, Gs, Vs, so, r0, jp * 16, LKP, HDP, lane);
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            delta[e >> 1] = fmaf(d[t][e], s[2 * jp + t][e], delta[e >> 1]);
+      }
+      delta[0] = quad_sum(delta[0]);
+      delta[1] = quad_sum(delta[1]);
+#pragma unroll
+      for (int jp = 0; jp < NT / 2; ++jp) {
+        if (jp >= nkt) continue;
+        float d[2][4];
+        dot_nt(d, Gs, Vs, so, r0, jp * 16, LKP, HDP, lane);
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int j = 2 * jp + t;
+          sb[j][0] = pack(s[j][0] * (d[t][0] - delta[0]), s[j][1] * (d[t][1] - delta[0]));
+          sb[j][1] = pack(s[j][2] * (d[t][2] - delta[1]), s[j][3] * (d[t][3] - delta[1]));
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      pb[j][0] = pack(s[j][0], s[j][1]);
+      pb[j][1] = pack(s[j][2], s[j][3]);
+    }
+
+    // dQ = round(dS) . K, scaled after the dot: round(dS) straight from the
+    // registers as A fragments, K through ldmatrix.trans
+    for (int c0 = 0; c0 < HDP; c0 += kColTile) {
+      float acc[kColTile / 8][4] = {};
+#pragma unroll
+      for (int kp = 0; kp < NT / 2; ++kp) {
+        if (kp >= nkt) continue;
+        const uint32_t a[4] = {sb[2 * kp][0], sb[2 * kp][1], sb[2 * kp + 1][0],
+                               sb[2 * kp + 1][1]};
+        dot_cols(acc, a, Ks, so, kp * 16, c0, HDP, lane);
+      }
+      store_tile(dq + qoff + c0, D, r0, Lq, hd - c0, acc, scale, lane);
+    }
+  }
+
+  __syncthreads();  // K and V are dead: round(P) and round(dS) take their place
+  if (r0 < LQP) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j >= 2 * nkt) continue;
+      const int col = j * 8 + 2 * tq;
+      *reinterpret_cast<uint32_t*>(Ps + (r0 + gr) * sp + col) = pb[j][0];
+      *reinterpret_cast<uint32_t*>(Ps + (r0 + gr + 8) * sp + col) = pb[j][1];
+      *reinterpret_cast<uint32_t*>(dSs + (r0 + gr) * sp + col) = sb[j][0];
+      *reinterpret_cast<uint32_t*>(dSs + (r0 + gr + 8) * sp + col) = sb[j][1];
+    }
+  }
+  __syncthreads();
+
+  // dV = round(P)^T . G and dK = round(dS)^T . Q for the warp's key rows;
+  // both operands through ldmatrix.trans
+  const int k0 = warp * 16;
+  if (k0 >= LKP) return;
+  for (int c0 = 0; c0 < HDP; c0 += kColTile) {
+    float av[kColTile / 8][4] = {}, ak[kColTile / 8][4] = {};
+    for (int kq = 0; kq < LQP; kq += 16) {
+      uint32_t ap[4], as[4];
+      ldsm_x4_t(ap, a_cols(Ps, sp, kq, k0, lane));
+      ldsm_x4_t(as, a_cols(dSs, sp, kq, k0, lane));
+      dot_cols(av, ap, Gs, so, kq, c0, HDP, lane);
+      dot_cols(ak, as, Qs, so, kq, c0, HDP, lane);
+    }
+    store_tile(dv + koff + c0, D, k0, Lk, hd - c0, av, 1.f, lane);
+    store_tile(dk + koff + c0, D, k0, Lk, hd - c0, ak, scale, lane);
+  }
+}
+
+template <int NT>
+int launch_mma(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
+               void* dv, int B, int H, int Lq, int Lk, int hd, float scale,
+               cudaStream_t stream) {
+  const size_t smem = mma_smem_bytes(Lq, Lk, hd);
+  const cudaError_t err = cudaFuncSetAttribute(attention_bwd_mma_kernel<NT>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int LP = mma::round16(Lq > Lk ? Lq : Lk);
+  attention_bwd_mma_kernel<NT><<<B * H, LP / 16 * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), H, Lq, Lk, hd, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
+                void* dv, int B, int H, int Lq, int Lk, int hd, float scale,
+                cudaStream_t stream) {
+  if (Lq > kMmaMaxLen || Lk > kMmaMaxLen || hd > 128) return (int)cudaErrorInvalidValue;
+  if (mma::round16(Lk) <= 8 * kRowTiles)
+    return launch_mma<kRowTiles>(q, k, v, g, dq, dk, dv, B, H, Lq, Lk, hd, scale, stream);
+  return launch_mma<kMmaMaxLen / 8>(q, k, v, g, dq, dk, dv, B, H, Lq, Lk, hd, scale, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory the larger of the two launches needs, in bytes
-// (dtype 0 = fp32, 1 = bf16).
+// Shared memory one launch needs, in bytes (dtype 0 = fp32: the larger of
+// its two kernels; 1 = bf16).
 size_t attention_bwd_smem_bytes(int dtype, int Lq, int Lk, int hd) {
-  const int n = Lq > Lk ? Lq : Lk;
-  return dtype == 1 ? smem_bytes<__nv_bfloat16>(n, hd) : smem_bytes<float>(n, hd);
+  if (dtype == 1) return mma_smem_bytes(Lq, Lk, hd);
+  return smem_bytes(Lq > Lk ? Lq : Lk, hd);
 }
+
+// Longest Lq or Lk the bf16 kernel takes.
+int attention_bwd_bf16_max_len() { return kMmaMaxLen; }
 
 // Largest dynamic shared memory a block may opt into on `device`.
 int attention_bwd_smem_limit(int device) {
@@ -363,18 +594,16 @@ int attention_bwd_smem_limit(int device) {
 }
 
 // q, g, dq [B, Lq, H*hd]; k, v, dk, dv [B, Lk, H*hd]: contiguous, 16-byte
-// aligned, hd % 8 == 0. stats: fp32 scratch of 3 * B * H * Lq. Launches
-// the two kernels on `stream`; returns the first cudaError.
+// aligned, hd % 8 == 0, hd <= 128. stats: fp32 scratch of 3 * B * H * Lq
+// for dtype 0, unused (may be null) for dtype 1. Launches on `stream`;
+// returns the first cudaError.
 int attention_bwd(const void* q, const void* k, const void* v, const void* g, void* dq,
                   void* dk, void* dv, void* stats, int dtype, int B, int H, int Lq, int Lk,
-                  int hd, int rows_per_block, int cols_per_block, float scale, void* stream) {
+                  int hd, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* st = static_cast<float*>(stats);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, g, dq, dk, dv, st, B, H, Lq, Lk, hd, rows_per_block,
-                                 cols_per_block, scale, s);
-  return launch<float>(q, k, v, g, dq, dk, dv, st, B, H, Lq, Lk, hd, rows_per_block,
-                       cols_per_block, scale, s);
+  if (dtype == 1) return launch_bf16(q, k, v, g, dq, dk, dv, B, H, Lq, Lk, hd, scale, s);
+  return launch_fp32(q, k, v, g, dq, dk, dv, static_cast<float*>(stats), B, H, Lq, Lk, hd,
+                     scale, s);
 }
 
 }  // extern "C"

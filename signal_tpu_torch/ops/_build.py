@@ -4,9 +4,11 @@ Each source becomes a shared library with a plain C interface, built by
 ``nvcc`` for ``sm_90a`` at first use into ``build/kernels/`` beside the
 package (listed in ``.gitignore``) and loaded with ``ctypes``. The file
 name carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded. ``nvcc``'s report
+rebuilt and a stale library is never loaded (the shared headers
+``csrc/*.cuh`` count as part of every source). ``nvcc``'s report
 (``-Xptxas -v``: registers, shared memory, spills) is kept beside the
-library as ``<name>-<hash>.log``.
+library as ``<name>-<hash>.log``; :func:`ptxas_report` reads it and
+:func:`hmma_counts` counts each kernel's tensor-core instructions.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -28,13 +31,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``): PATH, then
+    ``$CUDA_HOME/bin``."""
+    found = shutil.which(name)
     if found:
         return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / name
     if not cand.exists():
-        raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the CUDA "
+        raise RuntimeError(f"{name} not found (PATH or $CUDA_HOME/bin): the CUDA "
                            "kernels are built from source at first use")
     return str(cand)
 
@@ -42,6 +47,7 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -60,7 +66,7 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         log = open(path.with_suffix(".log"), "w")
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
+            [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
             stdout=log, stderr=subprocess.STDOUT)
         running.append((name, proc, tmp, path, log))
     failed = []
@@ -82,3 +88,41 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _loaded:
         _loaded[name] = ctypes.CDLL(str(build([name])[name]))
     return _loaded[name]
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel of the built ``csrc/<name>.cu`` (mangled name): registers
+    and spill bytes, from ``nvcc -Xptxas -v``'s log."""
+    out: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in library_path(name).with_suffix(".log").read_text().splitlines():
+        hit = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", line)
+        if hit:
+            fn = out.setdefault(hit.group(1), {})
+            continue
+        if fn is None:
+            continue
+        hit = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if hit:
+            fn["spill_stores"], fn["spill_loads"] = int(hit.group(1)), int(hit.group(2))
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit:
+            fn["registers"] = int(hit.group(1))
+    return out
+
+
+def hmma_counts(name: str) -> Dict[str, int]:
+    """Per kernel of the built ``csrc/<name>.cu`` (mangled name): the
+    tensor-core instructions (``HMMA``) in ``cuobjdump -sass``."""
+    text = subprocess.run([cuda_tool("cuobjdump"), "-sass", str(build([name])[name])],
+                          capture_output=True, text=True, check=True).stdout
+    out: Dict[str, int] = {}
+    fn = None
+    for line in text.splitlines():
+        hit = re.search(r"Function : ([\w$]+)", line)
+        if hit:
+            fn = hit.group(1)
+            out[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            out[fn] += 1
+    return out

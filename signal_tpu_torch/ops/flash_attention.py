@@ -13,14 +13,18 @@ runs :class:`_FusedAttention`, the port of the JAX ``custom_vjp``:
   (:func:`attention_bwd_cuda`), or raises. There is no fallback from one
   to the other.
 
-The kernels replace ``_attn_kernel`` and ``_attn_bwd_kernel``. On an H100
-both are bound by memory, not arithmetic, at the ViT-B shape
-([3B, 129, 768], 12 heads of 64, bf16): tens of FLOP per byte moved,
-against the card's ~295 FLOP/B ridge. Their designs read each head's
-operands from device memory once into shared memory, keep everything of
-size [Lq, Lk] on chip, and read the heads by stride from [B, L, D] so no
-transpose copies are made. The sources say more. Mesh and tensor-parallel
-routing (`:263-281` of the JAX module) come with tensor parallelism.
+The kernels replace ``_attn_kernel`` and ``_attn_bwd_kernel``. At the
+ViT-B shape ([3B, 129, 768], 12 heads of 64, bf16) both do tens of FLOP
+per byte moved, against the card's ~295 FLOP/B ridge, so their floor is
+device memory. What holds them above it is their on-chip work, and their
+bf16 paths run it on the tensor cores (``mma.sync``, bf16 in, fp32
+accumulation), at the TPU kernels' rounding points. Their fp32 paths stay
+on the CUDA cores: fp32 on the tensor cores would be TF32. Both read each
+head's operands from device memory once into shared memory, keep
+everything of size [Lq, Lk] on chip, and read the heads by stride from
+[B, L, D] so no transpose copies are made. The sources say more. Mesh
+and tensor-parallel routing (`:263-281` of the JAX module) come with
+tensor parallelism.
 """
 
 from __future__ import annotations
@@ -30,8 +34,9 @@ import math
 
 import torch
 
-# the kernels' limits: 16-byte vector loads of a head's columns, and one
-# warp's column pairs stepping by 64
+# the kernels' limits: 16-byte vector loads of a head's columns (hd % 8 ==
+# 0), and hd <= 128, at which the bf16 backward's shared memory still holds
+# Lq = Lk = 160
 MAX_HEAD_DIM = 128
 
 
@@ -132,12 +137,13 @@ def _load(name: str) -> ctypes.CDLL:
     lib = load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "attention_fwd":
-        lib.attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
-        lib.attention_fwd_smem_bytes.argtypes = [i, i, i]
+        lib.attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
     else:
-        lib.attention_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+        lib.attention_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
                                       ctypes.c_float, p]
-        lib.attention_bwd_smem_bytes.argtypes = [i, i, i, i]
+        lib.attention_bwd_bf16_max_len.argtypes = []
+        lib.attention_bwd_bf16_max_len.restype = i
+    getattr(lib, f"{name}_smem_bytes").argtypes = [i, i, i, i]
     getattr(lib, name).restype = i
     getattr(lib, f"{name}_smem_bytes").restype = ctypes.c_size_t
     getattr(lib, f"{name}_smem_limit").argtypes = [i]
@@ -150,12 +156,6 @@ def _guard_smem(name: str, lib: ctypes.CDLL, need: int, device: torch.device, wh
     if need > limit:
         raise ValueError(f"{what} needs {need} B of shared memory; the card "
                          f"allows {limit} B per block")
-
-
-def _tile(n: int) -> int:
-    """Rows per block: a whole short sequence in one tile, so each block
-    reads its head's staged operands once."""
-    return -(-n // -(-n // 256))
 
 
 def attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -174,12 +174,11 @@ def attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Lq, D = q.shape
     Lk = k.shape[1]
     code = _DTYPE_CODE[q.dtype]
-    _guard_smem("attention_fwd", lib, lib.attention_fwd_smem_bytes(code, Lk, hd), q.device,
-                f"Lk={Lk}, hd={hd} ({q.dtype})")
+    _guard_smem("attention_fwd", lib, lib.attention_fwd_smem_bytes(code, Lq, Lk, hd),
+                q.device, f"Lq={Lq}, Lk={Lk}, hd={hd} ({q.dtype})")
     o = torch.empty_like(q)
     rc = lib.attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                           code, B, num_heads, Lq, Lk, hd, _tile(Lq),
-                           1.0 / math.sqrt(hd),
+                           code, B, num_heads, Lq, Lk, hd, 1.0 / math.sqrt(hd),
                            torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"attention_fwd launch failed: cudaError {rc}")
@@ -192,24 +191,32 @@ attention_fwd_cuda.launches = 0
 
 def attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
                        num_heads: int):
-    """Launch ``csrc/attention_bwd.cu`` (its row and column kernels) on the
-    current stream. q, g [B, Lq, D], k/v [B, Lk, D], fp32 or bf16, on the
-    card → (dq, dk, dv) in the same shapes and dtype. Counts each call in
-    ``attention_bwd_cuda.launches``."""
+    """Launch ``csrc/attention_bwd.cu`` on the current stream: in bf16 its
+    fused tensor-core kernel, which takes Lq, Lk ≤ 160; in fp32 its row
+    and column kernels. q, g [B, Lq, D], k/v [B, Lk, D], fp32 or bf16, on
+    the card → (dq, dk, dv) in the same shapes and dtype. Counts each call
+    in ``attention_bwd_cuda.launches``."""
     hd = _check("attention_bwd_cuda", num_heads, q, k, v, g)
     lib = _load("attention_bwd")
     B, Lq, D = q.shape
     Lk = k.shape[1]
     code = _DTYPE_CODE[q.dtype]
+    longest = lib.attention_bwd_bf16_max_len()
+    if q.dtype == torch.bfloat16 and max(Lq, Lk) > longest:
+        # one 16-row tile per warp and a whole key row in registers
+        raise ValueError(f"the bf16 backward kernel takes Lq, Lk <= {longest}, "
+                         f"got Lq={Lq}, Lk={Lk}")
     _guard_smem("attention_bwd", lib, lib.attention_bwd_smem_bytes(code, Lq, Lk, hd),
                 q.device, f"Lq={Lq}, Lk={Lk}, hd={hd} ({q.dtype})")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # per query row: the softmax max and sum and rowsum(dP∘P), fp32
-    stats = torch.empty(3, B * num_heads * Lq, dtype=torch.float32, device=q.device)
+    stats = None
+    if q.dtype == torch.float32:
+        # per query row: the softmax max and sum and rowsum(dP∘P), fp32
+        stats = torch.empty(3, B * num_heads * Lq, dtype=torch.float32, device=q.device)
     rc = lib.attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-                           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-                           code, B, num_heads, Lq, Lk, hd, _tile(Lq), _tile(Lk),
-                           1.0 / math.sqrt(hd),
+                           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                           None if stats is None else stats.data_ptr(),
+                           code, B, num_heads, Lq, Lk, hd, 1.0 / math.sqrt(hd),
                            torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"attention_bwd launch failed: cudaError {rc}")

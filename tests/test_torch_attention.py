@@ -46,7 +46,16 @@ def _qkv(seed, B, Lq, Lk, D):
     (2, 9, 9, 360, 6, "float32"),       # odd head dims (hd 60, 96, 64)
     (2, 9, 9, 384, 4, "float32"),
     (2, 9, 9, 256, 4, "float32"),
-], ids=["fp32", "bf16", "cross-fp32", "cross-bf16", "hd60", "hd96", "hd64"])
+    # the tile edges of the bf16 kernels: one query row against 17 keys,
+    # the ViT's 129 at one head of 64, and head dims 8 and 24 that the
+    # kernels pad to 16 and 32
+    (2, 1, 17, 64, 1, "float32"), (2, 1, 17, 64, 1, "bfloat16"),
+    (1, 129, 129, 64, 1, "float32"), (1, 129, 129, 64, 1, "bfloat16"),
+    (2, 9, 9, 16, 2, "float32"), (2, 9, 9, 16, 2, "bfloat16"),
+    (2, 9, 9, 48, 2, "float32"), (2, 9, 9, 48, 2, "bfloat16"),
+], ids=["fp32", "bf16", "cross-fp32", "cross-bf16", "hd60", "hd96", "hd64",
+        "lq1-lk17-fp32", "lq1-lk17-bf16", "l129-fp32", "l129-bf16",
+        "hd8-fp32", "hd8-bf16", "hd24-fp32", "hd24-bf16"])
 def test_flash_attention_plain_matches_jax_kernel(B, Lq, Lk, D, H, dtype):
     q, k, v = _qkv(B * 100 + D, B, Lq, Lk, D)
     want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), num_heads=H,

@@ -41,7 +41,13 @@ def _arrays(seed, *shapes):
     (2, 9, 9, 128, 4),      # self-attention, hd 32
     (2, 3, 17, 128, 4),     # cross attention, Lq != Lk
     (2, 9, 9, 384, 6),      # odd: 6 heads of 64
-], ids=["self", "cross", "odd"])
+    # the tile edges of the bf16 kernel: one query row against 17 keys, the
+    # ViT's 129 at one head of 64, head dims 8 and 24 (padded to 16, 32)
+    (2, 1, 17, 64, 1),
+    (1, 129, 129, 64, 1),
+    (2, 9, 9, 16, 2),
+    (2, 9, 9, 48, 2),
+], ids=["self", "cross", "odd", "lq1-lk17", "l129", "hd8", "hd24"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bwd_plain_version_matches_jax_kernel(B, Lq, Lk, D, H, dtype):
     q, k, v, g = _arrays(B * Lq + D, (B, Lq, D), (B, Lk, D), (B, Lk, D), (B, Lq, D))

@@ -12,6 +12,14 @@ import torch
 
 pytestmark = pytest.mark.cuda
 
+# the bf16 kernels pad rows and the head dim to multiples of 16: every
+# length at or next to a tile edge, at head dims 8 and 24 (a zero-padded
+# contraction), 64 and 128; cross attention both ways
+_EDGE_LENGTHS = [(n, n) for n in (1, 15, 16, 17, 129, 145)] + [
+    (1, 145), (145, 1), (17, 129), (129, 16), (15, 17)]
+_EDGES = [(2, lq, lk, 2 * hd, 2, torch.bfloat16)
+          for hd in (8, 24, 64, 128) for lq, lk in _EDGE_LENGTHS]
+
 
 @pytest.fixture
 def cuda_device():
@@ -26,6 +34,9 @@ def cuda_device():
     (4, 3, 384, 512, 8, torch.float32),       # cross attention, Lq != Lk
     (4, 9, 9, 384, 6, torch.bfloat16),        # odd: 6 heads of 64
     (2, 17, 33, 256, 2, torch.float32),       # hd 128, ragged lengths
+    (4, 3, 384, 512, 8, torch.bfloat16),      # keys past a register row: two passes
+    (2, 17, 300, 256, 2, torch.bfloat16),     # the same at hd 128
+    *_EDGES,
 ])
 def test_attention_kernel_matches_plain_version(cuda_device, B, Lq, Lk, D, H, dtype):
     from signal_tpu_torch.ops.flash_attention import attention_fwd_cuda, flash_attention_reference
@@ -79,6 +90,8 @@ def test_attention_fwd_kernel_refuses_a_graph(cuda_device):
     (4, 40, 7, 512, 8, torch.bfloat16),       # cross attention, Lq > Lk
     (4, 9, 9, 384, 6, torch.bfloat16),        # odd: 6 heads of 64
     (2, 17, 33, 256, 2, torch.float32),       # hd 128, ragged lengths
+    (2, 160, 160, 256, 2, torch.bfloat16),    # the longest the bf16 kernel takes
+    *_EDGES,
 ])
 def test_attention_bwd_kernel_matches_plain_version(cuda_device, B, Lq, Lk, D, H, dtype):
     from signal_tpu_torch.ops.flash_attention import (
@@ -107,6 +120,38 @@ def test_attention_bwd_kernel_matches_plain_version(cuda_device, B, Lq, Lk, D, H
             # and peak at 2-3: two ulps of |x| < 1 (2 · 2^-8) absolute, and
             # rtol 1e-2 (one ulp is 2^-8 to 2^-7 of the value) above
             np.testing.assert_allclose(a, b, atol=8e-3, rtol=1e-2, err_msg=name)
+
+
+def test_attention_bwd_kernel_rejects_what_it_cannot_take(cuda_device):
+    from signal_tpu_torch.ops.flash_attention import attention_bwd_cuda
+
+    before = attention_bwd_cuda.launches
+    q = torch.zeros(1, 4, 64, device=cuda_device)
+    kv = torch.zeros(1, 1000, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="shared"):
+        attention_bwd_cuda(q, kv, kv, q, 1)               # Lk beyond shared memory
+    q, kv = q.bfloat16(), torch.zeros(1, 161, 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="160"):
+        attention_bwd_cuda(q, kv, kv, q, 1)               # Lk past the register row
+    assert attention_bwd_cuda.launches == before
+
+
+def test_bf16_kernels_run_on_the_tensor_cores_without_spills(cuda_device):
+    """Each library's bf16 kernels hold tensor-core instructions (HMMA in
+    ``cuobjdump -sass``) and spill nothing (``nvcc -Xptxas -v``)."""
+    from signal_tpu_torch.ops import _build
+
+    try:
+        _build.cuda_tool("cuobjdump")
+    except RuntimeError:
+        pytest.skip("needs cuobjdump")
+    for name in ("attention_fwd", "attention_bwd"):
+        hmma = {fn: n for fn, n in _build.hmma_counts(name).items() if "mma_kernel" in fn}
+        assert hmma and all(hmma.values()), (name, hmma)
+        report = {fn: r for fn, r in _build.ptxas_report(name).items() if "mma_kernel" in fn}
+        assert report.keys() == hmma.keys(), (name, report, hmma)
+        for fn, r in report.items():
+            assert r["spill_stores"] == r["spill_loads"] == 0, (fn, r)
 
 
 def test_flash_attention_gradients_go_through_both_kernels(cuda_device):
