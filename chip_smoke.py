@@ -31,8 +31,23 @@ Phases (any failure exits non-zero; nothing is caught):
      step, ms/step, samples/s, peak memory;
   7. train end to end: ``signal_tpu_torch.cli.train_main`` on
      configs/synthetic/smoke.yml at full width, two epochs and an eval →
-     finite loss and mAP.
-Phases 5 and 7 are the main paths: every launch count is zeroed just
+     finite loss and mAP;
+  8. the paper's recipe end to end: a seeded fp16 TorchScript archive laid
+     out as CLIP's ``ViT-B-16.pt`` (published shapes) imported through
+     MODEL.PRETRAIN_PATH_CLIP (the tower equals the archive, the pos embed
+     resized 14×14 → 16×8), then ``train_main`` with ACCUM_ITER 2, center
+     loss, REMAT_POLICY attn and re-ranking → finite loss and mAP; then a
+     real SIGTERM at the first step, the preemption checkpoint, and a
+     ``--resume`` of it to MAX_EPOCHS;
+  9. accumulation at full width: the flagship config in fp32 (SGD, center
+     loss), one step at ACCUM_ITER 2 on [h; h] (B = 64) against one at 1
+     on h (B = 32): loss, gradients, parameters, centres; (48, 24) launches;
+ 10. REMAT policies: the flagship bf16 step at B = 64 under full, dots,
+     attn, attn_mlp, half and without remat: ms/step, peak memory and
+     launches per step; gradients against 'full' in fp32 and bf16;
+ 11. re-ranking on the card: N = 5,000 (1,000 query + 4,000 gallery, width
+     3072) for time and memory; N = 320 against the CPU.
+Phases 5, 7 and 8 are the main paths: every launch count is zeroed just
 before each and read just after. Then the script prints the kernel table
 as one JSON line, and as its last line ``{"ok": true, "device": {...}}``.
 Details go to chiprun_out/chip_smoke.json. It imports nothing of JAX or of
@@ -104,6 +119,67 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_train_steps(torch, step, batch, n: int = 5):
+    """One warm-up step, then ``n`` timed ones (host clock around
+    synchronised steps) → {ms_per_step, peak_memory_gib, forward and
+    backward kernel launches per step, losses}."""
+    from signal_tpu_torch.ops.flash_attention import attention_bwd_cuda, attention_fwd_cuda
+
+    step(*batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attention_fwd_cuda.launches = attention_bwd_cuda.launches = 0
+    t0 = time.perf_counter()
+    losses = [step(*batch)[0] for _ in range(n)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    return {"ms_per_step": ms, "samples_per_s": batch[1].shape[0] / ms * 1e3,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "attention_fwd_launches_per_step": attention_fwd_cuda.launches / n,
+            "attention_bwd_launches_per_step": attention_bwd_cuda.launches / n,
+            "losses": [x.item() for x in losses]}
+
+
+def device_busy_ms(torch, step, batch, n: int = 2) -> float:
+    """Device time of one step: the kernels' own time summed under
+    ``torch.profiler`` over ``n`` steps, / n. Unlike the host clock it does
+    not count the time the device waits for the host."""
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            step(*batch)
+        torch.cuda.synchronize()
+    # device events only; the optimizer's step annotation spans its kernels
+    # on the device timeline and would count them twice
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")) / 1e3 / n
+
+
+def in_turns(torch, steps: dict, batch, rounds: int = 3):
+    """Time each of ``steps`` (name → train step) in turns, forward then
+    backward through the names, ``rounds`` times (a, b, b, a: drift on the
+    card and load on the host fall on all alike) → {name: the timing of its
+    fastest window, with every window's ms, and its device busy time}."""
+    out = {}
+    names = list(steps)
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            row = time_train_steps(torch, steps[name], batch)
+            if not all(math.isfinite(x) for x in row["losses"]):
+                raise SystemExit(f"{name}: non-finite train loss {row['losses']}")
+            best = out.get(name)
+            windows = (best["ms_all"] if best else []) + [row["ms_per_step"]]
+            if best is None or row["ms_per_step"] < best["ms_per_step"]:
+                best = row
+            out[name] = dict(best, ms_all=windows)
+    for name, step in steps.items():
+        out[name]["device_busy_ms_per_step"] = device_busy_ms(torch, step, batch)
+    return out
 
 
 def check_attention(torch, report, peaks):
@@ -588,6 +664,413 @@ def run_train_path(torch, report):
     return launches
 
 
+def write_clip_archive(torch, path: Path, layers: int = 12):
+    """A seeded fp16 TorchScript archive laid out as OpenAI's ``ViT-B-16.pt``:
+    the ``visual.*`` tensors of ViT-B/16 at their published shapes (width
+    768, 14×14 + 1 positions, proj 768×512) and one text-side tensor.
+    → the archive's state dict (fp16, on the CPU)."""
+    from torch import nn
+
+    from signal_tpu_torch.models.vit import VisionTransformer
+
+    class Clip(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.visual = VisionTransformer(h_resolution=14, w_resolution=14, width=768,
+                                            layers=layers, output_dim=512)
+            self.logit_scale = nn.Parameter(torch.ones([]))
+
+        def forward(self, x: torch.Tensor) -> torch.Tensor:
+            return x * self.logit_scale
+
+    gen = torch.Generator().manual_seed(11)
+    clip = Clip()
+    clip.visual.reset_parameters(gen)
+    with torch.no_grad():
+        for name, p in clip.visual.named_parameters():
+            if "ln" in name:  # LayerNorms off their identity init
+                p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    clip = clip.half()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.jit.script(clip).save(str(path))
+    return clip.state_dict()
+
+
+def run_recipe_path(torch, report):
+    """Phase 8: the paper's recipe through ``train_main``: a CLIP import,
+    ACCUM_ITER 2, center loss, REMAT_POLICY attn, re-ranking; then a real
+    SIGTERM at the first step, the preemption checkpoint and its resume."""
+    import os
+    import signal
+
+    from signal_tpu_torch.cli import train_main
+    from signal_tpu_torch.config import load_config
+    from signal_tpu_torch.models import signal_model as sm
+    from signal_tpu_torch.models.clip_loader import load_clip_into_model
+    from signal_tpu_torch.models.vit import resize_pos_embed
+    from signal_tpu_torch.ops.flash_attention import attention_bwd_cuda, attention_fwd_cuda
+
+    work = REPO / "build" / "chip_smoke_recipe"
+    shutil.rmtree(work, ignore_errors=True)
+    archive = work / "ViT-B-16.pt"
+    t0 = time.perf_counter()
+    src = write_clip_archive(torch, archive)
+    out = {"archive_mb": archive.stat().st_size / 2 ** 20,
+           "archive_s": time.perf_counter() - t0}
+    config = str(REPO / "configs/synthetic/smoke.yml")
+    opts = ["MODEL.DEVICE", "cuda", "OUTPUT_DIR", str(work),
+            "MODEL.PRETRAIN_PATH_CLIP", str(archive), "SOLVER.ACCUM_ITER", "2",
+            "MODEL.METRIC_LOSS_TYPE", "triplet_center", "MODEL.REMAT_POLICY", "attn",
+            "TEST.RE_RANKING", "yes"]
+
+    # the import as train_main makes it: the tower equals the archive,
+    # widened to fp32, the pos embed resized 14×14 → the 16×8 grid
+    cfg = load_config(config, opts)
+    spec = sm.ModelSpec.from_config(cfg, num_classes=10, camera_num=4)
+    model = load_clip_into_model(sm.init_signal(spec, seed=cfg.SOLVER.SEED), str(archive))
+    tower = model.clip_vision_encoder.base.state_dict()
+    worst = 0.0
+    for k, v in tower.items():
+        want = src[f"visual.{k}"].float()
+        if k == "positional_embedding":
+            want = resize_pos_embed(want, spec.h, spec.w)
+        if v.shape != want.shape:
+            raise SystemExit(f"imported {k}: shape {tuple(v.shape)}, want {tuple(want.shape)}")
+        worst = max(worst, (v - want).abs().max().item())
+    out["import_max_abs_err"] = worst
+    if worst != 0.0:
+        raise SystemExit(f"the imported tower differs from the archive: max abs err {worst}")
+    del model, tower
+
+    attention_fwd_cuda.launches = attention_bwd_cuda.launches = 0
+    t0 = time.perf_counter()
+    state = train_main(["--config_file", config] + opts)
+    torch.cuda.synchronize()
+    launches = {"attention_fwd": attention_fwd_cuda.launches,
+                "attention_bwd": attention_bwd_cuda.launches}
+    run = work / "synthetic_run"
+    log_text = (run / "train_log.txt").read_text()
+    out["train"] = {"epochs": state.epoch, "loss": state.loss, "acc": state.acc,
+                    "mAP": state.mAP, "rank1": float(state.cmc[0]) if state.cmc is not None
+                    else None, "seconds": time.perf_counter() - t0, "launches": launches,
+                    "clip_loaded": f"Loaded CLIP weights from {archive}" in log_text}
+    log(f"[recipe] train_main CLIP + ACCUM_ITER 2 + center + remat attn + re-ranking: "
+        f"{json.dumps(out['train'])}")
+    if not (math.isfinite(state.loss) and state.mAP is not None and math.isfinite(state.mAP)
+            and state.epoch == cfg.SOLVER.MAX_EPOCHS and out["train"]["clip_loaded"]):
+        raise SystemExit(f"recipe run: {out['train']}")
+    if min(launches.values()) == 0:
+        raise SystemExit(f"the recipe path left a kernel unlaunched: {launches}")
+
+    # preemption: a real SIGTERM to this process at the first step
+    shutil.rmtree(run)
+    sent = []
+
+    def sigterm_at_first_step(epoch, n_iter):
+        if not sent:
+            sent.append((epoch, n_iter))
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    stopped = train_main(["--config_file", config] + opts, step_callback=sigterm_at_first_step)
+    restored = signal.getsignal(signal.SIGTERM) in (signal.SIG_DFL, None)
+    stopped_log = (run / "train_log.txt").read_text()    # each run rewrites the log
+    ckpt = run / "Signal_preempt.pth"
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)
+    resumed = train_main(["--resume", str(ckpt), "--config_file", config] + opts)
+    resumed_log = (run / "train_log.txt").read_text()
+    out["preempt"] = {"sigterm_at": sent, "returned_at_epoch": stopped.epoch,
+                      "saved_epoch": saved["epoch"], "saved_centers": "centers" in saved,
+                      "resumed_to_epoch": resumed.epoch, "resumed_loss": resumed.loss,
+                      "resumed_mAP": resumed.mAP,
+                      "handler_ran": "SIGTERM received" in stopped_log,
+                      "resumed_from_it": f"Resumed from {ckpt}" in resumed_log,
+                      "sigterm_handler_restored": restored}
+    log(f"[recipe] SIGTERM at the first step, then --resume: {json.dumps(out['preempt'])}")
+    p = out["preempt"]
+    if not (p["saved_epoch"] == 0 and p["returned_at_epoch"] == 0 and p["saved_centers"]
+            and p["handler_ran"] and p["resumed_from_it"]
+            and p["resumed_to_epoch"] == cfg.SOLVER.MAX_EPOCHS
+            and math.isfinite(resumed.loss) and p["sigterm_handler_restored"]):
+        raise SystemExit(f"preemption on the card: {p}")
+    logs = REPO / "chiprun_out" / "chip_smoke"
+    logs.mkdir(parents=True, exist_ok=True)
+    (logs / "recipe_preempted_log.txt").write_text(stopped_log)
+    (logs / "recipe_resumed_log.txt").write_text(resumed_log)
+    shutil.rmtree(work)
+    report["recipe"] = out
+    return launches
+
+
+def check_accumulation(torch, report):
+    """Phase 9: ACCUM_ITER at full width: the flagship config in fp32 on
+    the kernel path, center loss on; one step at A = 2 on [h; h] (B = 64)
+    against one step at A = 1 on h (B = 32). SGD: its update is linear in
+    the gradient (Adam turns the rounding noise of an analytically zero
+    gradient into ±lr steps, as tests/test_accum.py notes)."""
+    from signal_tpu_torch.config import load_config
+    from signal_tpu_torch.engine.train import init_centers, make_train_step
+    from signal_tpu_torch.models import signal_model as sm
+    from signal_tpu_torch.ops.flash_attention import attention_bwd_cuda, attention_fwd_cuda
+    from signal_tpu_torch.solver import make_optimizer, schedule_coeffs, set_lr
+
+    C = 171
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    h = 32
+    u8 = torch.randint(0, 256, (h, 3, 3, 256, 128), dtype=torch.uint8, device="cuda",
+                       generator=gen)
+    pids = torch.randperm(C, device="cuda", generator=gen)[:h // 8].repeat_interleave(8)
+    cams = torch.randint(0, 4, (h,), device="cuda", generator=gen)
+    runs = {}
+    for accum, batch in ((1, (u8, pids, cams)),
+                         (2, tuple(torch.cat([t, t]) for t in (u8, pids, cams)))):
+        cfg = load_config(str(REPO / "configs/RGBNT201/Signal.yml"), [
+            "SOLVER.ACCUM_ITER", str(accum), "MODEL.METRIC_LOSS_TYPE", "triplet_center",
+            "SOLVER.OPTIMIZER_NAME", "SGD", "MODEL.COMPUTE_DTYPE", "float32"])
+        spec = sm.ModelSpec.from_config(cfg, num_classes=C, camera_num=4)
+        model = sm.init_signal(spec, seed=0).to("cuda")
+        optimizer = make_optimizer(model, cfg)
+        set_lr(optimizer, *schedule_coeffs(cfg, 1))
+        centers = init_centers(cfg, spec, C, torch.device("cuda"))
+        step = make_train_step(model, cfg, C, optimizer, centers=centers)
+        attention_fwd_cuda.launches = attention_bwd_cuda.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = step(*batch)
+        torch.cuda.synchronize()
+        runs[accum] = {
+            "loss": loss.item(),
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": (attention_fwd_cuda.launches, attention_bwd_cuda.launches),
+            "params": {n: p.detach().clone() for n, p in model.named_parameters()},
+            "grads": {n: p.grad.clone() for n, p in model.named_parameters()
+                      if p.grad is not None},
+            "centers": centers.detach().clone()}
+        del model, optimizer, step, centers
+    a1, a2 = runs[1], runs[2]
+    worst_p = max(((a2["params"][n] - p).abs() / (1e-6 + 1e-4 * p.abs())).max().item()
+                  for n, p in a1["params"].items())
+    grad_rel = {n: ((a2["grads"][n] - g).norm() / g.norm()).item()
+                for n, g in a1["grads"].items() if g.norm().item() >= 1e-6}
+    worst_g = max(grad_rel, key=grad_rel.get)
+    out = {"batch": [h, 2 * h], "loss_a1": a1["loss"], "loss_a2": a2["loss"],
+           "param_err_over_tol_max": worst_p,
+           "centers_max_abs_err": (a2["centers"] - a1["centers"]).abs().max().item(),
+           "grad_max_rel_l2": grad_rel[worst_g], "grad_max_rel_l2_tensor": worst_g,
+           "launches_a1": a1["launches"], "launches_a2": a2["launches"],
+           "peak_memory_gib_a1": a1["peak_memory_gib"],
+           "peak_memory_gib_a2": a2["peak_memory_gib"]}
+    log(f"[accum] flagship fp32, center loss, A=2 on [h; h] vs A=1 on h: {json.dumps(out)}")
+    if not (math.isclose(a2["loss"], a1["loss"], rel_tol=1e-5) and worst_p <= 1.0
+            and torch.allclose(a2["centers"], a1["centers"], rtol=1e-4, atol=1e-6)
+            and grad_rel[worst_g] < 1e-4):
+        raise SystemExit(f"accumulation: A=2 on [h; h] differs from A=1 on h: {out}")
+    if a2["launches"] != (48, 24) or a1["launches"] != (24, 12):
+        raise SystemExit(f"launches per step: A=1 {a1['launches']}, A=2 {a2['launches']}; "
+                         f"want (24, 12) and (48, 24)")
+    del runs, a1, a2
+
+    # the flagship bf16 step as configured (Adam, device augment, remat) at
+    # B = 64 in one batch and in two microbatches of 32, on one model in
+    # turns: time, memory, launches
+    B = 2 * h
+    u8 = torch.randint(0, 256, (B, 3, 3, 256, 128), dtype=torch.uint8, device="cuda",
+                       generator=gen)
+    pids = torch.randperm(C, device="cuda", generator=gen)[:B // 8].repeat_interleave(8)
+    cams = torch.randint(0, 4, (B,), device="cuda", generator=gen)
+    torch.cuda.empty_cache()
+    cfg = load_config(str(REPO / "configs/RGBNT201/Signal.yml"))
+    model = sm.init_signal(sm.ModelSpec.from_config(cfg, num_classes=C, camera_num=4),
+                           seed=0).to("cuda")
+    optimizer = make_optimizer(model, cfg)
+    set_lr(optimizer, *schedule_coeffs(cfg, 1))
+    steps = {}
+    for accum in (1, 2):
+        cfg_a = load_config(str(REPO / "configs/RGBNT201/Signal.yml"),
+                            ["SOLVER.ACCUM_ITER", str(accum)])
+        steps[f"a{accum}"] = make_train_step(model, cfg_a, C, optimizer, device_augment=True,
+                                             gen=torch.Generator(device="cuda").manual_seed(4))
+    timed = in_turns(torch, steps, (u8, pids, cams))
+    for name, row in timed.items():
+        log(f"[accum] flagship bf16 step B={B}, ACCUM_ITER {name[1:]}: {json.dumps(row)}")
+        out[f"bf16_step_{name}"] = row
+    want = {"a1": (24.0, 12.0), "a2": (48.0, 24.0)}
+    for name, row in timed.items():
+        got = (row["attention_fwd_launches_per_step"], row["attention_bwd_launches_per_step"])
+        if got != want[name]:
+            raise SystemExit(f"ACCUM_ITER {name[1:]}: launches per step {got}, want {want[name]}")
+    del model, optimizer, steps
+    report["accumulation"] = out
+
+
+def check_remat_policies(torch, report):
+    """Phase 10: the flagship bf16 step at B = 64 under every REMAT policy
+    and without remat: ms/step, peak memory, launches per step; gradients
+    against 'full' (bf16 cosine, fp32 allclose)."""
+    import contextlib
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from signal_tpu_torch.config import load_config
+    from signal_tpu_torch.data.augment import normalize_images
+    from signal_tpu_torch.engine.train import make_train_step
+    from signal_tpu_torch.losses import make_loss, total_train_loss
+    from signal_tpu_torch.models import signal_model as sm
+    from signal_tpu_torch.ops.attention import true_fp32
+    from signal_tpu_torch.ops.flash_attention import attention_bwd_cuda, attention_fwd_cuda
+    from signal_tpu_torch.solver import make_optimizer, schedule_coeffs, set_lr
+
+    cfg = load_config(str(REPO / "configs/RGBNT201/Signal.yml"))
+    B, C, K = cfg.SOLVER.IMS_PER_BATCH, 171, cfg.DATALOADER.NUM_INSTANCE
+    spec = sm.ModelSpec.from_config(cfg, num_classes=C, camera_num=4)
+    model = sm.init_signal(spec, seed=0).to("cuda")
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    u8 = torch.randint(0, 256, (B, 3, 3, 256, 128), dtype=torch.uint8, device="cuda",
+                       generator=gen)
+    pids = torch.randperm(C, device="cuda", generator=gen)[:B // K].repeat_interleave(K)
+    cams = torch.randint(0, 4, (B,), device="cuda", generator=gen)
+    imgs = normalize_images(u8, cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD)
+    loss_fn = make_loss(cfg, C)
+    make_optimizer(model, cfg)   # freezes what the step does not train, as below
+    params = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    policies = [(True, "full"), (True, "dots"), (True, "attn"), (True, "attn_mlp"),
+                (True, "half"), (False, "full")]
+
+    class CountProducts(TorchDispatchMode):
+        """The 2-D products (``aten.mm``, any overload) dispatched inside."""
+
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += func.overloadpacket is torch.ops.aten.mm
+            return func(*args, **(kwargs or {}))
+
+    def grads(dtype, remat, policy, counter=None):
+        model.load_state_dict(state0)
+        model.spec = dataclasses.replace(spec, compute_dtype=dtype, remat=remat,
+                                         remat_policy=policy)
+        with true_fp32():
+            o = sm.forward_train(model, imgs, cams)
+            loss = total_train_loss(o, pids, loss_fn, gram_weight=cfg.MODEL.Gram_Loss_weight,
+                                    pat_weight=cfg.MODEL.PAT_Loss_weight)
+            with counter or contextlib.nullcontext():
+                g = torch.autograd.grad(loss, [p for _, p in params], allow_unused=True)
+        return {n: (torch.zeros_like(p) if x is None else x) for (n, p), x in zip(params, g)}
+
+    rows = {}
+    ref = {dt: grads(dt, True, "full") for dt in ("float32", "bfloat16")}
+    for remat, policy in policies:
+        name = policy if remat else "off"
+        row = {}
+        # numbers: fp32 allclose as phase 6, bf16 cosine, against 'full'
+        g32 = grads("float32", remat, policy)
+        worst = 0.0
+        for n, b in ref["float32"].items():
+            if b.norm().item() < 1e-6:
+                continue
+            a = g32[n]
+            worst = max(worst, ((a - b).norm() / b.norm()).item())
+            if not torch.allclose(a, b, rtol=1e-3, atol=1e-4 * b.abs().max().item()):
+                raise SystemExit(f"remat {name}: fp32 gradient of {n} differs from 'full'")
+        del g32
+        products = CountProducts()
+        g16 = grads("bfloat16", remat, policy, products)
+        cos = {n: torch.nn.functional.cosine_similarity(
+                   g16[n].flatten().float(), b.flatten().float(), dim=0).item()
+               for n, b in ref["bfloat16"].items() if b.norm().item() >= 1e-6}
+        del g16
+        low = min(cos, key=cos.get)
+        row.update(fp32_grad_max_rel_l2=worst, bf16_grad_cos_min=cos[low],
+                   bf16_grad_cos_min_tensor=low, backward_products=products.n)
+        if cos[low] <= 0.99:
+            raise SystemExit(f"remat {name}: bf16 gradient of {low} has cosine {cos[low]}")
+        rows[name] = row
+        log(f"[remat] {name} numbers: {json.dumps(row)}")
+
+    # the step as configured but for the policy, one model and optimizer,
+    # the policies in turns (the spec is read at each forward): time,
+    # memory, launches
+    del ref
+    model.load_state_dict(state0)
+    optimizer = make_optimizer(model, cfg)
+    set_lr(optimizer, *schedule_coeffs(cfg, 1))
+    step = make_train_step(model, cfg, C, optimizer, device_augment=True,
+                           gen=torch.Generator(device="cuda").manual_seed(4))
+
+    def under(remat, policy):
+        def run(*batch):
+            model.spec = dataclasses.replace(spec, remat=remat, remat_policy=policy)
+            return step(*batch)
+        return run
+
+    torch.cuda.empty_cache()
+    timed = in_turns(torch, {(p if r else "off"): under(r, p) for r, p in policies},
+                     (u8, pids, cams))
+    for name, row in timed.items():
+        rows[name].update(row)
+        log(f"[remat] {name}: {json.dumps(rows[name])}")
+    report["remat"] = rows
+    del model, optimizer, step
+    # a block that is recomputed at all relaunches the forward kernel: the
+    # out-proj's weight gradient needs the attention core's output
+    for name, fwd in {"full": 24, "dots": 24, "attn": 24, "attn_mlp": 24, "half": 18,
+                      "off": 12}.items():
+        got = (rows[name]["attention_fwd_launches_per_step"],
+               rows[name]["attention_bwd_launches_per_step"])
+        if got != (fwd, 12):
+            raise SystemExit(f"remat {name}: launches per step {got}, want ({fwd}, 12)")
+    # 'dots' keeps every product's output: its backward runs the products
+    # of the step without remat and none more
+    if rows["dots"]["backward_products"] != rows["off"]["backward_products"]:
+        raise SystemExit(f"'dots' recomputes products: {rows['dots']['backward_products']} "
+                         f"in its backward, {rows['off']['backward_products']} without remat")
+
+
+def check_reranking(torch, report):
+    """Phase 11: re-ranking on the card at the JAX package's sizing (N =
+    5,000: 1,000 query + 4,000 gallery, width 3072) for time and memory,
+    and at N = 320 against the same function on the CPU."""
+    import numpy as np
+
+    from signal_tpu_torch.reranking import re_ranking
+
+    out = {}
+    # small integers: every distance is exact on both devices, so they rank
+    # alike (ties by index) and only summation order separates the results
+    small = torch.from_numpy(np.random.default_rng(12).integers(-3, 4, (320, 64))
+                             .astype(np.float32))
+    want = re_ranking(small[:40], small[40:], k1=20, k2=6, lambda_value=0.3)
+    got = re_ranking(small[:40].cuda(), small[40:].cuda(), k1=20, k2=6, lambda_value=0.3)
+    err = (got.cpu() - want).abs()
+    out["n320_max_abs_err"] = err.max().item()
+    if not bool((err <= 1e-5 + 1e-4 * want.abs()).all()):
+        raise SystemExit(f"re-ranking on the card differs from the CPU: max abs err "
+                         f"{out['n320_max_abs_err']} (atol 1e-5 + rtol 1e-4)")
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    feats = torch.randn(5000, 3072, device="cuda", generator=gen)
+    feats = feats / feats.norm(dim=1, keepdim=True)
+    qf, gf = feats[:1000], feats[1000:]
+    re_ranking(qf, gf, k1=50, k2=15, lambda_value=0.3)            # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        dist = re_ranking(qf, gf, k1=50, k2=15, lambda_value=0.3)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out.update(n=5000, num_query=1000, width=3072, ms=min(times), ms_all=times,
+               peak_memory_gib=(torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+               finite=bool(torch.isfinite(dist).all()), shape=list(dist.shape))
+    log(f"[rerank] {json.dumps(out)}")
+    if not (out["finite"] and out["shape"] == [1000, 4000]):
+        raise SystemExit(f"re-ranking at N=5000: {out}")
+    report["reranking"] = out
+
+
 def run_main_path(torch, report):
     """Phase 5: the test CLI end to end on the synthetic config."""
     from signal_tpu_torch.cli import test_main
@@ -644,6 +1127,10 @@ def main() -> int:
     eval_launches = run_main_path(torch, report)
     check_train_step(torch, report)
     train_launches = run_train_path(torch, report)
+    recipe_launches = run_recipe_path(torch, report)
+    check_accumulation(torch, report)
+    check_remat_policies(torch, report)
+    check_reranking(torch, report)
 
     def entry(kernel, source, replaces, rows, launches):
         bf16, fp32 = rows["main-bf16"], rows["main-fp32"]
@@ -656,11 +1143,14 @@ def main() -> int:
 
     fwd = entry("attention_fwd", "signal_tpu_torch/csrc/attention_fwd.cu",
                 "signal_tpu/ops/flash_attention.py:50", rows, train_launches["attention_fwd"])
-    fwd.update(launches_eval=eval_launches, ms_train_shape=rows["train-bf16"]["ms"],
+    fwd.update(launches_eval=eval_launches, launches_recipe=recipe_launches["attention_fwd"],
+               ms_train_shape=rows["train-bf16"]["ms"],
                bound_ms_train_shape=rows["train-bf16"]["bound_ms"])
-    kernels = [fwd, entry("attention_bwd", "signal_tpu_torch/csrc/attention_bwd.cu",
-                          "signal_tpu/ops/flash_attention.py:123", bwd,
-                          train_launches["attention_bwd"])]
+    bwd_entry = entry("attention_bwd", "signal_tpu_torch/csrc/attention_bwd.cu",
+                      "signal_tpu/ops/flash_attention.py:123", bwd,
+                      train_launches["attention_bwd"])
+    bwd_entry["launches_recipe"] = recipe_launches["attention_bwd"]
+    kernels = [fwd, bwd_entry]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     out = REPO / "chiprun_out"

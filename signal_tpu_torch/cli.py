@@ -85,12 +85,16 @@ def _seed(cfg) -> None:
     torch.manual_seed(cfg.SOLVER.SEED)
 
 
-def train_main(argv=None):
+def train_main(argv=None, *, preempt_event=None, step_callback=None):
     """Train on the config's train split, evaluating every EVAL_PERIOD
     epochs → the final :class:`signal_tpu_torch.engine.train.TrainState`.
     ``--shrink k=v,...`` replaces ModelSpec fields before init;
     ``--max_steps_per_epoch`` cuts each epoch short (smoke runs);
-    ``--resume`` continues from a checkpoint the loop wrote."""
+    ``--resume`` continues from a checkpoint the loop wrote, such as the
+    ``<MODEL.NAME>_preempt.pth`` a SIGTERM leaves in the run's directory.
+    MODEL.PRETRAIN_PATH_CLIP (or PRETRAIN_PATH_T) names OpenAI's CLIP
+    archive, whose visual tower replaces the seeded random one.
+    ``preempt_event`` and ``step_callback`` go to :func:`do_train`."""
     parser = argparse.ArgumentParser(description="Signal PyTorch-port training")
     parser.add_argument("--config_file", default="configs/RGBNT201/Signal.yml", type=str)
     parser.add_argument("--shrink", default="",
@@ -118,10 +122,6 @@ def train_main(argv=None):
     logger.info("device: %s (%s)", device,
                 torch.cuda.get_device_name(device) if device.type == "cuda" else "host")
     logger.info("Running with config:\n%s", cfg.dump())
-    if cfg.MODEL.PRETRAIN_PATH_CLIP or cfg.MODEL.PRETRAIN_PATH_T:
-        raise NotImplementedError(
-            "MODEL.PRETRAIN_PATH_CLIP: the CLIP ViT-B-16.pt importer is not ported "
-            "yet (ROADMAP Queue 1 item 3); the port trains from a seeded random init")
 
     (train_loader, _, val_loader, num_query, num_classes, camera_num,
      view_num) = make_dataloader(cfg)
@@ -131,10 +131,17 @@ def train_main(argv=None):
     overrides = parse_spec_overrides(args.shrink)
     if overrides:
         spec = dataclasses.replace(spec, **overrides)
-    model = init_signal(spec, seed=cfg.SOLVER.SEED).to(device)
-    return do_train(cfg, model, train_loader, val_loader, num_query, num_classes,
+    model = init_signal(spec, seed=cfg.SOLVER.SEED)
+    clip_path = cfg.MODEL.PRETRAIN_PATH_CLIP or cfg.MODEL.PRETRAIN_PATH_T
+    if clip_path:
+        from signal_tpu_torch.models.clip_loader import load_clip_into_model
+
+        load_clip_into_model(model, clip_path)
+        logger.info("Loaded CLIP weights from %s", clip_path)
+    return do_train(cfg, model.to(device), train_loader, val_loader, num_query, num_classes,
                     device=device, max_steps_per_epoch=args.max_steps_per_epoch or None,
-                    resume_from=args.resume or None)
+                    resume_from=args.resume or None, preempt_event=preempt_event,
+                    step_callback=step_callback)
 
 
 def test_main(argv=None):

@@ -1,5 +1,5 @@
 """Train losses (port of `signal_tpu/losses.py`): label-smoothed ID loss,
-batch-hard triplet, and the per-head combination.
+batch-hard triplet, center loss, and the per-head combination.
 
 Behavioral mirrors of `layers/{make_loss,triplet_loss,softmax_loss}.py`
 (maxingan2412/Signal):
@@ -9,10 +9,12 @@ Behavioral mirrors of `layers/{make_loss,triplet_loss,softmax_loss}.py`
 * TripletLoss: batch-hard mining over the true-fp32 Euclidean distance
   matrix (masked max/min); soft margin (softplus) when NO_MARGIN, else the
   margin ranking loss;
+* CenterLoss: the clamped squared distance of each sample to its own
+  class centre, summed and divided by the batch size. The centres are not
+  a model parameter: the train step owns them and moves them by plain SGD
+  (``engine/train.py``);
 * make_loss: the per-head closure, and total_train_loss the
   sign-dispatched sum with the GAM and LAM weights.
-
-Center loss (``center`` in METRIC_LOSS_TYPE) is not ported yet.
 """
 
 from __future__ import annotations
@@ -62,14 +64,22 @@ def triplet_loss(feats: torch.Tensor, labels: torch.Tensor, margin: Optional[flo
     return loss, dist_ap, dist_an
 
 
+def center_loss(centers: torch.Tensor, feats: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """centers [C, D], feats [B, D] → Σ_b clamp(‖f_b − c_{y_b}‖², 1e-12, 1e12) / B
+    (`center_loss.py:31-55`), from the expanded squared distance as the JAX
+    package computes it."""
+    f = feats.float()
+    d = ((f * f).sum(dim=1)[:, None] + (centers * centers).sum(dim=1)[None, :]
+         - 2.0 * f @ centers.t())
+    mask = F.one_hot(labels, centers.shape[0]).float()
+    return (d.clamp(1e-12, 1e12) * mask).sum() / f.shape[0]
+
+
 def make_loss(cfg, num_classes: int) -> Callable:
     """Per-head loss closure (`make_loss.py:29-193`): loss_fn(score, feat,
     target); a list of scores or feats weighs its first element 0.5 and
-    the mean of the rest 0.5."""
-    if "center" in cfg.MODEL.METRIC_LOSS_TYPE:
-        raise NotImplementedError(
-            f"MODEL.METRIC_LOSS_TYPE={cfg.MODEL.METRIC_LOSS_TYPE!r}: center loss is not "
-            f"ported yet (ROADMAP Queue 1 item 8)")
+    the mean of the rest 0.5. A ``center`` METRIC_LOSS_TYPE adds
+    :func:`center_loss` in the train step, which holds the centres."""
     id_w = cfg.MODEL.ID_LOSS_WEIGHT
     tri_w = cfg.MODEL.TRIPLET_LOSS_WEIGHT
     smooth_on = cfg.MODEL.IF_LABELSMOOTH == "on"

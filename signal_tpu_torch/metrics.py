@@ -112,17 +112,15 @@ class R1mAPEvaluator:
     normalizes, builds the distmat with one true-fp32 GEMM and ranks.
 
     ``scene_aware=True`` selects the MSVR310 protocol; ``rank_dump_path``
-    additionally writes its `re.txt`-style rank lists. Re-ranking is not
-    ported yet and raises."""
+    additionally writes its `re.txt`-style rank lists. ``reranking=True``
+    (TEST.RE_RANKING) ranks by k-reciprocal re-ranking with k1 = 50,
+    k2 = 15, λ = 0.3 instead (:mod:`signal_tpu_torch.reranking`)."""
 
     def __init__(self, num_query: int, max_rank: int = 50, feat_norm: bool = True,
                  reranking: bool = False, scene_aware: bool = False,
                  rank_dump_path: Optional[str] = None):
-        if reranking:
-            raise NotImplementedError(
-                "TEST.RE_RANKING: k-reciprocal re-ranking is not ported yet "
-                "(ROADMAP Queue 1 item 11)")
         self.num_query = num_query
+        self.reranking = reranking
         self.max_rank = max_rank
         self.feat_norm = feat_norm
         self.scene_aware = scene_aware
@@ -146,8 +144,6 @@ class R1mAPEvaluator:
             self.img_paths.extend(list(img_path))
 
     def compute(self):
-        from signal_tpu_torch.ops.distmat import euclidean_sqdist
-
         feats = torch.cat(self.feats, dim=0).float()
         if self.feat_norm:
             feats = feats / (torch.linalg.norm(feats, dim=1, keepdim=True) + 1e-12)
@@ -156,9 +152,16 @@ class R1mAPEvaluator:
         g_pids = np.asarray(self.pids[self.num_query:])
         q_camids = np.asarray(self.camids[: self.num_query])
         g_camids = np.asarray(self.camids[self.num_query:])
-        # the reference leaves the squared form unrooted — monotone, so
-        # ranking-identical (`metrics.py:494-500`)
-        distmat = euclidean_sqdist(qf, gf)
+        if self.reranking:
+            from signal_tpu_torch.reranking import re_ranking
+
+            distmat = re_ranking(qf, gf, k1=50, k2=15, lambda_value=0.3)
+        else:
+            from signal_tpu_torch.ops.distmat import euclidean_sqdist
+
+            # the reference leaves the squared form unrooted — monotone, so
+            # ranking-identical (`metrics.py:494-500`)
+            distmat = euclidean_sqdist(qf, gf)
 
         if self.scene_aware:
             q_sc = np.asarray(self.sceneids[: self.num_query])

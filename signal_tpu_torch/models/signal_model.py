@@ -57,7 +57,7 @@ class ModelSpec:
     compute_dtype: str = "bfloat16"
     use_flash: bool = False
     remat: bool = True           # MODEL.REMAT: per-block recompute in the backward
-    remat_policy: str = "full"   # MODEL.REMAT_POLICY; only 'full' is ported
+    remat_policy: str = "full"   # MODEL.REMAT_POLICY: full | dots | attn | attn_mlp | half
     miss: str = "nothing"        # TEST.MISS missing-modality eval pattern
 
     @classmethod

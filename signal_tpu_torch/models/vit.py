@@ -6,11 +6,10 @@
 Parameters carry the reference CLIP ``VisionTransformer``'s names
 (``conv1.weight``, ``transformer.resblocks.{i}.attn.in_proj_weight``, …),
 so a reference-named state dict loads as it is. The blocks run as a plain
-Python loop. In training, ``remat`` (MODEL.REMAT, policy 'full') wraps each
-block in ``torch.utils.checkpoint``: the backward recomputes the block
-from its input, as the JAX tower's ``jax.checkpoint`` does. The JAX
-tower's scan, pipeline, sequence-parallel and MoE machinery is not
-ported.
+Python loop. In training, ``remat`` (MODEL.REMAT) checkpoints the blocks
+under MODEL.REMAT_POLICY (:func:`vit_forward` says which tensors each
+policy keeps). The JAX tower's scan, pipeline, sequence-parallel and MoE
+machinery is not ported.
 
 bf16 rounding points follow the JAX tower exactly: the patch conv rounds
 its output to the compute dtype before the fp32 cast; the residual stream
@@ -101,17 +100,71 @@ class VisionTransformer(nn.Module):
             ln.reset_parameters()
 
 
-def _block(blk: ResidualAttentionBlock, x: torch.Tensor, *, num_heads: int,
-           compute_dtype, use_flash: bool) -> torch.Tensor:
-    dt = x.dtype  # residual stream dtype
-    attn_out = mha(blk.attn, layer_norm(blk.ln_1, x), num_heads=num_heads,
-                   compute_dtype=compute_dtype, use_flash=use_flash).to(dt)
-    x = x + attn_out
+def _attn_branch(blk: ResidualAttentionBlock, x: torch.Tensor, *, num_heads: int,
+                 compute_dtype, use_flash: bool) -> torch.Tensor:
+    """ln_1 → MHA, in the residual stream's dtype (JAX's ``attn_out``)."""
+    return mha(blk.attn, layer_norm(blk.ln_1, x), num_heads=num_heads,
+               compute_dtype=compute_dtype, use_flash=use_flash).to(x.dtype)
+
+
+def _mlp_hidden(blk: ResidualAttentionBlock, x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """ln_2 → fc → QuickGELU, in the compute dtype (JAX's ``mlp_hidden``)."""
     h = layer_norm(blk.ln_2, x)
-    h = quick_gelu(linear(blk.mlp.c_fc.weight, blk.mlp.c_fc.bias, h, compute_dtype,
-                          out_dtype=compute_dtype))
-    h = linear(blk.mlp.c_proj.weight, blk.mlp.c_proj.bias, h, compute_dtype)
-    return x + h.to(dt)
+    return quick_gelu(linear(blk.mlp.c_fc.weight, blk.mlp.c_fc.bias, h, compute_dtype,
+                             out_dtype=compute_dtype))
+
+
+def _mlp_out(blk: ResidualAttentionBlock, x: torch.Tensor, hidden: torch.Tensor,
+             compute_dtype) -> torch.Tensor:
+    """x + proj(hidden), the block's output in the residual stream's dtype."""
+    h = linear(blk.mlp.c_proj.weight, blk.mlp.c_proj.bias, hidden, compute_dtype)
+    return x + h.to(x.dtype)
+
+
+def _block(blk: ResidualAttentionBlock, x: torch.Tensor, *, num_heads: int,
+           compute_dtype, use_flash: bool, policy: str | None = None) -> torch.Tensor:
+    """One residual block. ``policy`` 'attn' or 'attn_mlp' runs it as
+    checkpoint segments whose inputs are what the policy keeps: the block
+    input and ``attn_out`` (and ``mlp_hidden``); None runs it plainly."""
+    attn = functools.partial(_attn_branch, blk, num_heads=num_heads,
+                             compute_dtype=compute_dtype, use_flash=use_flash)
+    if policy is None:
+        x = x + attn(x)
+        return _mlp_out(blk, x, _mlp_hidden(blk, x, compute_dtype), compute_dtype)
+    ckpt = functools.partial(torch.utils.checkpoint.checkpoint, use_reentrant=False)
+    attn_out = ckpt(attn, x)
+    if policy == "attn":
+        def tail(x, attn_out):
+            x = x + attn_out
+            return _mlp_out(blk, x, _mlp_hidden(blk, x, compute_dtype), compute_dtype)
+
+        return ckpt(tail, x, attn_out)
+    # attn_mlp: the residual sum is recomputed outside the hidden's segment
+    # (the same bf16 add, so the same values); proj keeps its own input
+    hidden = ckpt(lambda x, attn_out: _mlp_hidden(blk, x + attn_out, compute_dtype),
+                  x, attn_out)
+    return _mlp_out(blk, x + attn_out, hidden, compute_dtype)
+
+
+REMAT_POLICIES = ("full", "dots", "attn", "attn_mlp", "half")
+
+
+def _keep_products(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of 'dots': keep the outputs of 2-D
+    products (``aten.mm``, and on the card ``_MatmulF32``'s ``out_dtype``
+    overload of it); recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in _PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.mm.dtype)
+
+
+def _save_products():
+    return torch.utils.checkpoint.create_selective_checkpoint_contexts(_keep_products)
 
 
 def embed_patches(vit: VisionTransformer, images: torch.Tensor, cv_emb=None, *,
@@ -146,24 +199,50 @@ def vit_forward(vit: VisionTransformer, images: torch.Tensor, cv_emb=None, *,
 
     ``cv_emb`` [B, width]: SIE camera embedding, added to the CLS token
     only. ``use_flash``: each block's attention goes through the fused
-    kernel (one launch per block on the card, one more per block in the
-    remat recompute). ``remat``: under grad mode, each block is a
-    ``torch.utils.checkpoint`` whose backward recomputes it; only the
-    'full' policy (save nothing inside a block) is ported."""
-    if remat and remat_policy != "full":
-        raise NotImplementedError(
-            f"MODEL.REMAT_POLICY={remat_policy!r}: only 'full' is ported; the "
-            f"other policies are ROADMAP Queue 1 item 8")
+    kernel (one launch per block on the card, one more per block whose
+    backward recomputes it).
+
+    ``remat`` (under grad mode) keeps for each block's backward what the
+    JAX tower's ``jax.checkpoint`` policy keeps (`signal_tpu/models/
+    vit.py:252-291,353-372`) and recomputes the rest:
+
+    * 'full': the block's input only (``torch.utils.checkpoint`` of the
+      block);
+    * 'dots': also the outputs of the block's non-batched products (q, k,
+      v, out-proj, fc, proj). A selective checkpoint whose policy saves
+      ``aten.mm``'s outputs: the products are the only ops it must tell
+      apart, and it does so inside ``_MatmulF32`` and ``_FusedAttention``
+      as they are (the attention kernel is a ctypes call the policy never
+      sees, so it is recomputed);
+    * 'attn': ``attn_out``; 'attn_mlp': ``attn_out`` and ``mlp_hidden``.
+      Explicit checkpoint segments (:func:`_block`): a segment's inputs are
+      what it keeps, so the kept set is exact whatever ops a branch runs;
+    * 'half': the first ``layers // 2`` blocks as 'full', the rest keep
+      everything.
+
+    The out-proj's weight gradient needs the attention core's output, so
+    every block that is recomputed at all launches the forward kernel
+    again: 2 launches per block under 'full', 'dots', 'attn' and
+    'attn_mlp', 1.5 under 'half', 1 without remat. Remat never changes the
+    numbers, only memory and recompute."""
+    if remat and remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"MODEL.REMAT_POLICY={remat_policy!r}: one of {REMAT_POLICIES}")
     x = embed_patches(vit, images, cv_emb, stride=stride, compute_dtype=compute_dtype)
     x = x.to(compute_dtype)
     checkpointed = remat and torch.is_grad_enabled()
-    for blk in vit.transformer.resblocks:
+    blocks = vit.transformer.resblocks
+    for i, blk in enumerate(blocks):
         fn = functools.partial(_block, blk, num_heads=num_heads, compute_dtype=compute_dtype,
                                use_flash=use_flash)
-        if checkpointed:
-            x = torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False)
-        else:
+        if not checkpointed or (remat_policy == "half" and i >= len(blocks) // 2):
             x = fn(x)
+        elif remat_policy in ("full", "half"):
+            x = torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False)
+        elif remat_policy == "dots":
+            x = torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False,
+                                                  context_fn=_save_products)
+        else:
+            x = fn(x, policy=remat_policy)
     x_post = layer_norm(vit.ln_post, x)
     x_proj = matmul_f32(x_post.to(compute_dtype), vit.proj.to(compute_dtype))
     return x_proj[:, 1:], x_proj[:, 0]

@@ -192,3 +192,64 @@ def test_linear_backward_runs_on_the_card(cuda_device):
     for a, b in ((gx, fx), (gw, fw)):
         cos = torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(), dim=0)
         assert cos > 0.999, cos
+
+
+def _integer_features(seed, n, dim):
+    """Small integers: every distance is exact in fp32 on the card and on
+    the CPU, so both rank the same (ties by index) and only summation
+    order separates their re-ranked distances."""
+    return np.random.default_rng(seed).integers(-3, 4, (n, dim)).astype(np.float32)
+
+
+def test_reranking_on_the_card_equals_the_cpu(cuda_device):
+    from signal_tpu_torch.reranking import re_ranking
+
+    feats = torch.from_numpy(_integer_features(4, 320, 64))       # 40 query + 280 gallery
+    want = re_ranking(feats[:40], feats[40:], k1=20, k2=6, lambda_value=0.3)
+    got = re_ranking(feats[:40].to(cuda_device), feats[40:].to(cuda_device), k1=20, k2=6,
+                     lambda_value=0.3)
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5, rtol=1e-4)
+
+
+def test_accumulation_on_the_card_equals_one_step_on_half(cuda_device):
+    """ACCUM_ITER = 2 on [h; h] equals ACCUM_ITER = 1 on h (fp32, SGD,
+    center loss, both kernels): each microbatch is h. Each microbatch
+    launches the forward kernel twice per block (remat) and the backward
+    once."""
+    from signal_tpu_torch.config import load_config
+    from signal_tpu_torch.engine.train import init_centers, make_train_step
+    from signal_tpu_torch.models import signal_model as sm
+    from signal_tpu_torch.ops.flash_attention import attention_bwd_cuda, attention_fwd_cuda
+    from signal_tpu_torch.solver import make_optimizer, schedule_coeffs, set_lr
+
+    spec = sm.ModelSpec(num_classes=5, camera_num=3, width=128, layers=2, num_heads=4,
+                        feat_dim=64, h=4, w=4, topk=3, compute_dtype="float32", use_flash=True)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randint(0, 256, (8, 3, 3, 64, 64), dtype=torch.uint8, device=cuda_device,
+                      generator=gen)
+    pids = torch.tensor([0, 0, 3, 3, 1, 1, 4, 4], device=cuda_device)
+    cams = torch.randint(0, 3, (8,), device=cuda_device, generator=gen)
+    results = []
+    dup = tuple(torch.cat([t, t]) for t in (x, pids, cams))
+    for accum, batch in ((1, (x, pids, cams)), (2, dup)):
+        cfg = load_config("configs/synthetic/smoke.yml", [
+            "SOLVER.OPTIMIZER_NAME", "SGD", "SOLVER.ACCUM_ITER", str(accum),
+            "MODEL.METRIC_LOSS_TYPE", "triplet_center", "DATALOADER.NUM_INSTANCE", "2",
+            "INPUT.SIZE_TRAIN", "[64, 64]", "MODEL.TOPK", "3"])
+        model = sm.init_signal(spec, seed=0).to(cuda_device)
+        optimizer = make_optimizer(model, cfg)
+        set_lr(optimizer, *schedule_coeffs(cfg, 1))
+        centers = init_centers(cfg, spec, 5, cuda_device)
+        step = make_train_step(model, cfg, 5, optimizer, centers=centers)
+        fwd, bwd = attention_fwd_cuda.launches, attention_bwd_cuda.launches
+        loss, _ = step(*batch)
+        torch.cuda.synchronize()
+        assert (attention_fwd_cuda.launches - fwd, attention_bwd_cuda.launches - bwd) == \
+            (2 * spec.layers * accum, spec.layers * accum)
+        results.append((loss.item(), dict(model.named_parameters()), centers))
+    (l1, p1, c1), (l2, p2, c2) = results
+    assert l2 == pytest.approx(l1, rel=1e-5)
+    for name, p in p1.items():
+        torch.testing.assert_close(p2[name], p, rtol=1e-4, atol=1e-6, msg=name)
+    torch.testing.assert_close(c2, c1, rtol=1e-4, atol=1e-6)

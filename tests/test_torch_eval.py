@@ -115,8 +115,15 @@ def test_r1map_evaluator_matches_jax(scene_aware, tmp_path):
 
 
 def test_reranking_raises_until_ported():
-    with pytest.raises(NotImplementedError, match="re-ranking"):
-        tmetrics.R1mAPEvaluator(4, reranking=True)
+    """Ported now: the evaluator takes reranking=True and ranks by the
+    re-ranked distances (tests/test_torch_reranking.py holds them to
+    JAX's)."""
+    rng = np.random.default_rng(6)
+    feats = rng.standard_normal((12, 8)).astype(np.float32)
+    ev = tmetrics.R1mAPEvaluator(4, max_rank=5, reranking=True)
+    ev.update(torch.from_numpy(feats), np.arange(12) % 4, np.repeat([0, 1, 2], 4))
+    cmc, mAP, distmat, *_ = ev.compute()
+    assert distmat.shape == (4, 8) and 0.0 <= mAP <= 1.0 and len(cmc) == 5
 
 
 def _tiny_cfg(mod, tmp_path):
