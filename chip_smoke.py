@@ -46,8 +46,24 @@ Phases (any failure exits non-zero; nothing is caught):
      attn, attn_mlp, half and without remat: ms/step, peak memory and
      launches per step; gradients against 'full' in fp32 and bf16;
  11. re-ranking on the card: N = 5,000 (1,000 query + 4,000 gallery, width
-     3072) for time and memory; N = 320 against the CPU.
-Phases 5, 7 and 8 are the main paths: every launch count is zeroed just
+     3072) for time and memory; N = 320 against the CPU;
+ 12. serving: the flagship model (bf16, random weights from SOLVER.SEED)
+     exported with ``torch.export`` with uint8 input, at a fixed batch of
+     128 and at a symbolic batch, both on the card (the attention kernel in
+     the graph as its registered operator, 12 launches a batch), saved,
+     loaded and run against eager ``forward_eval`` (per-row cosine >
+     0.9999): the fixed one at B = 128, the symbolic one at B = 2, 8 and
+     128; both timed against eager in turns at B = 128; artifact bytes;
+ 13. host data: cores and libjpeg on this host; a seeded RGBNT201-shaped
+     tree of 1,024 + 1,024 JPEG triplets (256×128); the val loader (B 128)
+     and the device-augment train loader (PK 8×8, bicubic) per decoder the
+     host has, at the config's thread count and at the core count, in host
+     samples/s; the fed paths end to end (loader → prefetch → copy →
+     phase 12's artifact; → the train step) beside the device-only figures,
+     and the share of time the card waits on the host.
+Phases 4 and 6 also print MFU: the analytic model FLOPs
+(``utils/flops.py``) over the measured time and the card's bf16 peak.
+Phases 5, 7, 8 and 12 are the main paths: every launch count is zeroed just
 before each and read just after. Then the script prints the kernel table
 as one JSON line, and as its last line ``{"ok": true, "device": {...}}``.
 Details go to chiprun_out/chip_smoke.json. It imports nothing of JAX or of
@@ -67,14 +83,6 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 
-# published peaks by card (NVIDIA data sheets, dense): bytes/s of device
-# memory, FLOP/s for bf16 on the tensor cores and for fp32 outside them
-PEAKS = {
-    "H100 PCIe": (2.0e12, 756e12, 51e12),
-    "H100": (3.35e12, 989e12, 67e12),       # SXM (HBM3)
-    "H200": (4.8e12, 989e12, 67e12),
-}
-
 FP32_TOL = dict(atol=2e-5, rtol=1e-4)   # summation order only
 BF16_ATOL = 1.6e-2                      # one bf16 ulp of |o| < 4 (2^-6)
 # the backward on randn q, k, v, g (hd 64, scale 1/8): dq, dk, dv are ~0.15
@@ -89,13 +97,6 @@ BWD_BF16_TOL = dict(atol=8e-3, rtol=1e-2)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def peaks_for(name: str):
-    for key, vals in PEAKS.items():
-        if key in name:
-            return vals
-    raise SystemExit(f"no published peaks for {name!r}; add them to PEAKS")
 
 
 # the bf16 kernels pad rows and the head dim to multiples of 16: every
@@ -119,6 +120,17 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def mfu(torch, spec, batch: int, ms: float, train: bool = False) -> dict:
+    """The analytic model FLOPs of one eval forward (or train step) of
+    ``batch`` over ``ms``, against the card's published bf16 peak."""
+    from signal_tpu_torch.utils.flops import peak_flops_per_chip, signal_analytic_flops
+
+    flops = signal_analytic_flops(spec, batch, train=train)
+    rate = flops / (ms / 1e3)
+    return {"analytic_tflop": flops / 1e12, "model_tflops": rate / 1e12,
+            "mfu": rate / peak_flops_per_chip(torch.cuda.get_device_name(0))}
 
 
 def time_train_steps(torch, step, batch, n: int = 5):
@@ -447,7 +459,8 @@ def check_slice(torch, report):
     ms = (time.perf_counter() - t0) / n * 1e3
     per_fwd = attention_fwd_cuda.launches / n
     out["bf16_forward"] = {"batch": B, "ms_per_batch": ms, "samples_per_s": B / ms * 1e3,
-                           "attention_launches_per_forward": per_fwd}
+                           "attention_launches_per_forward": per_fwd,
+                           **mfu(torch, spec, B, ms)}
     log(f"[slice] flagship forward_eval bf16 B={B}: {json.dumps(out['bf16_forward'])}")
     if per_fwd != spec.layers:
         raise SystemExit(f"{per_fwd} attention launches per forward, want {spec.layers}")
@@ -621,7 +634,7 @@ def check_train_step(torch, report):
         "attention_fwd_launches_per_step": attention_fwd_cuda.launches / n,
         "attention_bwd_launches_per_step": attention_bwd_cuda.launches / n,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-        "losses": [x.item() for x in losses]}
+        "losses": [x.item() for x in losses], **mfu(torch, spec, B, ms, train=True)}
     log(f"[train] flagship train step bf16 B={B}: {json.dumps(out['bf16_step'])}")
     if (out["bf16_step"]["attention_fwd_launches_per_step"],
             out["bf16_step"]["attention_bwd_launches_per_step"]) != (2 * spec.layers, spec.layers):
@@ -1071,6 +1084,322 @@ def check_reranking(torch, report):
     report["reranking"] = out
 
 
+def check_serving(torch, report):
+    """Phase 12: the serving export of the flagship model (bf16, random
+    weights from SOLVER.SEED) with uint8 input, on the card, at a fixed
+    batch of 128 and at a symbolic batch: each keeps the attention kernel
+    in the graph as its registered operator. Each is saved, loaded and run
+    against eager ``forward_eval`` with the kernel (the fixed one at
+    B = 128, the symbolic one at B = 2, 8 and 128, 12 launches a batch),
+    and both are timed against eager in turns at B = 128. → (the fixed
+    artifact's callable, its ms per batch, its kernel launches per batch)."""
+    from signal_tpu_torch import serving
+    from signal_tpu_torch.config import load_config
+    from signal_tpu_torch.data.augment import normalize_images
+    from signal_tpu_torch.models import signal_model as sm
+    from signal_tpu_torch.ops.flash_attention import attention_fwd_cuda
+
+    cfg = load_config(str(REPO / "configs/RGBNT201/Signal.yml"))
+    B, hw = cfg.TEST.IMS_PER_BATCH, tuple(cfg.INPUT.SIZE_TEST)
+    norm = (tuple(cfg.INPUT.PIXEL_MEAN), tuple(cfg.INPUT.PIXEL_STD))
+    spec = sm.ModelSpec.from_config(cfg, num_classes=171, camera_num=4)
+    assert (B, spec.compute_dtype, spec.use_flash) == (128, "bfloat16", True), spec
+    model = sm.init_signal(spec, seed=cfg.SOLVER.SEED).to("cuda")
+    # the artifacts (weights included, ~0.4 GB each) go to the git-ignored
+    # build tree and are removed after; their manifests are kept
+    work = REPO / "build" / "chip_smoke_serving"
+    logs = REPO / "chiprun_out" / "chip_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    logs.mkdir(parents=True, exist_ok=True)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+
+    def batch(n):
+        imgs = {m: torch.randint(0, 256, (n, 3, *hw), dtype=torch.uint8, device="cuda",
+                                 generator=gen) for m in sm.MODALITIES}
+        return imgs, torch.randint(0, 4, (n,), device="cuda", generator=gen)
+
+    def eager(imgs, cams, use_flash=True):
+        model.spec = dataclasses.replace(spec, use_flash=use_flash)
+        with torch.inference_mode():
+            return sm.forward_eval(model, normalize_images(imgs, *norm), cams)
+
+    def agree(got, want):
+        cos = torch.nn.functional.cosine_similarity(got.float(), want.float(), dim=-1)
+        return {"cos_min": cos.min().item(), "max_abs_err": (got - want).abs().max().item(),
+                "max_abs": want.abs().max().item(), "finite": bool(torch.isfinite(got).all())}
+
+    out = {}
+    artifacts = {}
+    for name, b in (("fixed", B), ("symbolic", None)):
+        t0 = time.perf_counter()
+        ep = serving.export_eval(model, spec, image_size=hw, batch=b, normalize=norm,
+                                 device="cuda")
+        export_s = time.perf_counter() - t0
+        nodes = sum(str(n.target) == "signal_tpu_torch.attention_fwd.default"
+                    for n in ep.graph.nodes)
+        path = serving.save_exported(ep, str(work / name), extra_manifest={
+            "config_file": "configs/RGBNT201/Signal.yml", "weight": cfg.TEST.WEIGHT,
+            "image_size": list(hw), "uint8_input": True})
+        del ep
+        call, manifest = serving.load_exported(path)
+        shutil.copy(Path(path) / "manifest.json", logs / f"serving_{name}_manifest.json")
+        artifacts[name] = call
+        out[name] = {"export_s": export_s, "kernel_nodes": nodes, "bytes": manifest["bytes"],
+                     "in_avals": manifest["in_avals"], "out_avals": manifest["out_avals"],
+                     "device": manifest["device"]}
+        log(f"[serving] {name} artifact: {json.dumps(out[name])}")
+    if out["fixed"]["kernel_nodes"] != spec.layers or out["symbolic"]["kernel_nodes"] != spec.layers:
+        raise SystemExit(f"kernel operator nodes: fixed {out['fixed']['kernel_nodes']}, symbolic "
+                         f"{out['symbolic']['kernel_nodes']} (want {spec.layers} each)")
+
+    def served(name, call, n):
+        """One call at batch ``n``: its launches and its agreement with
+        eager ``forward_eval`` on the same inputs."""
+        imgs, cams = batch(n)
+        call(imgs, cams)
+        torch.cuda.synchronize()
+        attention_fwd_cuda.launches = 0
+        got = call(imgs, cams)
+        torch.cuda.synchronize()
+        launches = attention_fwd_cuda.launches
+        row = dict(agree(got, eager(imgs, cams)), launches_per_batch=launches)
+        log(f"[serving] {name} artifact at B={n} vs eager forward_eval: {json.dumps(row)}")
+        if not (tuple(got.shape) == (n, spec.eval_feat_dim) and row["finite"]
+                and row["cos_min"] > 0.9999 and row["launches_per_batch"] == spec.layers):
+            raise SystemExit(f"{name} artifact at B={n}: {row} (want {spec.layers} launches)")
+        return row
+
+    fixed, sym = artifacts["fixed"], artifacts["symbolic"]
+    out["fixed"].update(served("fixed", fixed, B))
+    launches = out["fixed"]["launches_per_batch"]
+    for n in (2, 8, B):
+        out["symbolic"][f"B{n}"] = served("symbolic", sym, n)
+
+    # in turns at B = 128: eager, fixed, symbolic, symbolic, fixed, eager
+    imgs, cams = batch(B)
+    calls = {"eager": lambda: eager(imgs, cams), "fixed": lambda: fixed(imgs, cams),
+             "symbolic": lambda: sym(imgs, cams)}
+    times = {side: [] for side in calls}
+    for side in ("eager", "fixed", "symbolic", "symbolic", "fixed", "eager"):
+        times[side].append(cuda_ms(torch, calls[side], iters=10, warmup=2))
+    timing = {"eager_ms_per_batch": min(times["eager"]), "eager_ms_all": times["eager"]}
+    for name in ("fixed", "symbolic"):
+        out[name].update(ms_per_batch=min(times[name]), ms_all=times[name],
+                         samples_per_s=B / min(times[name]) * 1e3, **timing)
+    log(f"[serving] B={B} ms per batch, in turns: {json.dumps(times)}")
+    model.spec = spec
+    report["serving"] = out
+    shutil.rmtree(work)
+    del model, artifacts, sym, calls
+    return fixed, out["fixed"]["ms_per_batch"], launches
+
+
+def write_rgbnt201(root: Path, ids: int, per_id: int, seed: int) -> dict:
+    """A seeded tree in RGBNT201's layout,
+    ``RGBNT201/{train_171,test}/{RGB,NI,TI}/<pid6>_cam<c>_<i>.jpg``, 256×128
+    per modality: ``ids`` × ``per_id`` triplets per split. Each image is a
+    smooth per-identity field with a per-instance shift and mild noise, so
+    its JPEG is a few KB as a photo's crop is (pure noise would be ~60 KB).
+    → {files, bytes, seconds}."""
+    import concurrent.futures as cf
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    jobs = []
+    for split in ("train_171", "test"):
+        for m in ("RGB", "NI", "TI"):
+            (root / "RGBNT201" / split / m).mkdir(parents=True, exist_ok=True)
+        for pid in range(1, ids + 1):
+            for i in range(per_id):
+                jobs.append((split, pid, i))
+
+    def write(job):
+        split, pid, i = job
+        rng = np.random.default_rng((seed, pid, i, split == "test"))
+        base = np.random.default_rng((seed, pid)).integers(0, 256, (3, 16, 8, 3), dtype=np.uint8)
+        name = f"{pid:06d}_cam{1 + i % 4}_{i:02d}.jpg"
+        for k, m in enumerate(("RGB", "NI", "TI")):
+            field = np.asarray(Image.fromarray(base[k]).resize((128, 256), Image.BICUBIC),
+                               np.float32)
+            field = np.roll(field, rng.integers(-8, 9, 2), axis=(0, 1))
+            img = np.clip(field + rng.normal(0, 4, field.shape), 0, 255).astype(np.uint8)
+            Image.fromarray(img).save(root / "RGBNT201" / split / m / name, quality=90)
+
+    with cf.ThreadPoolExecutor(os.cpu_count()) as pool:
+        list(pool.map(write, jobs))
+    files = list((root / "RGBNT201").rglob("*.jpg"))
+    return {"files": len(files), "bytes": sum(f.stat().st_size for f in files),
+            "seconds": time.perf_counter() - t0}
+
+
+def check_host_data(torch, report, artifact, artifact_ms: float):
+    """Phase 13: the host data path on the card's host. A seeded
+    RGBNT201-shaped tree (1,024 train and 1,024 test triplets of 256×128
+    JPEGs); the val loader at TEST.IMS_PER_BATCH and the train loader (PK
+    8×8, bicubic u8 for the device augment) for each decoder the host has,
+    at the config's thread count and at ``os.cpu_count()``, as host
+    samples/s (the better of two passes); then the fed paths end to end: loader → prefetch → copy →
+    phase 12's artifact, and loader → prefetch → copy → the train step,
+    beside the device-only figures of phases 4, 6 and 12."""
+    import ctypes.util
+    import os
+
+    import numpy as np
+
+    from signal_tpu_torch.config import load_config
+    from signal_tpu_torch.data import make_dataloader
+    from signal_tpu_torch.data import native_decoder
+    from signal_tpu_torch.data.prefetch import prefetch
+    from signal_tpu_torch.engine.train import make_train_step
+    from signal_tpu_torch.models import signal_model as sm
+    from signal_tpu_torch.solver import make_optimizer, schedule_coeffs, set_lr
+
+    out = {"cpu_count": os.cpu_count(),
+           "libjpeg_headers": Path("/usr/include/jpeglib.h").exists(),
+           "libjpeg_library": ctypes.util.find_library("jpeg"),
+           "native_decoder": native_decoder.available(),
+           "native_decoder_unavailable_because": native_decoder.unavailable_reason()}
+    log(f"[data] host: {json.dumps(out)}")
+    if not out["native_decoder"]:
+        log("[data] the native decoder cannot be built on this host: every loader below "
+            "decodes with PIL")
+    work = REPO / "build" / "chip_smoke_data"
+    shutil.rmtree(work, ignore_errors=True)
+    out["tree"] = write_rgbnt201(work, ids=128, per_id=8, seed=15)
+    log(f"[data] RGBNT201-shaped tree: {json.dumps(out['tree'])}")
+
+    base = ["DATASETS.ROOT_DIR", str(work), "MODEL.DEVICE", "cuda"]
+    cfg0 = load_config(str(REPO / "configs/RGBNT201/Signal.yml"), base)
+    threads = sorted({cfg0.DATALOADER.NUM_WORKERS, os.cpu_count()})
+    decoders = (["native"] if out["native_decoder"] else []) + ["pil"]
+    real_available = native_decoder.available
+
+    def loaders(n_threads, decoder):
+        """→ (cfg, train loader, val loader, classes, cameras); the PIL
+        decoder is chosen by making the native one unavailable."""
+        cfg = load_config(str(REPO / "configs/RGBNT201/Signal.yml"),
+                          base + ["DATALOADER.NUM_WORKERS", str(n_threads)])
+        native_decoder.available = real_available if decoder == "native" else (lambda: False)
+        train, _, val, _, classes, cams, _ = make_dataloader(cfg)
+        return cfg, train, val, classes, cams
+
+    def drain(loader):
+        """Host samples/s over one pass, from the first batch to the last
+        (the pool's start-up and the first batch's decode are apart)."""
+        t0 = time.perf_counter()
+        first = None
+        n = 0
+        for b in loader:
+            if first is None:
+                first, t1 = b, time.perf_counter()
+            else:
+                n += b["packed"].shape[0]
+        t2 = time.perf_counter()
+        return {"samples_per_s": n / (t2 - t1), "first_batch_s": t1 - t0,
+                "batches": len(loader), "decoder": loader.decoder}, first
+
+    rows, firsts = {}, {}
+    try:
+        for decoder in decoders:
+            for n_threads in threads:
+                _, train, val, _, _ = loaders(n_threads, decoder)
+                for kind, loader in (("val", val), ("train", train)):
+                    # two passes: the host is shared, so one pass says
+                    # little about the spread
+                    (row, first), (again, _) = drain(loader), drain(loader)
+                    row["samples_per_s_passes"] = [row["samples_per_s"], again["samples_per_s"]]
+                    row["samples_per_s"] = max(row["samples_per_s_passes"])
+                    rows[f"{kind}_{decoder}_{n_threads}t"] = row
+                    firsts[(kind, decoder)] = first
+                    log(f"[data] {kind} loader, {decoder} decode, {n_threads} threads: "
+                        f"{json.dumps(row)}")
+                    if row["decoder"] != decoder:
+                        raise SystemExit(f"{kind} loader: asked {decoder}, served {row['decoder']}")
+    finally:
+        native_decoder.available = real_available
+    out["loaders"] = rows
+    if "native" in decoders:
+        a = firsts[("val", "native")]["packed"].astype(np.int64)
+        b = firsts[("val", "pil")]["packed"].astype(np.int64)
+        diff = np.abs(a - b)
+        out["native_vs_pil"] = {"max_lsb": int(diff.max()), "share_off": float((diff > 0).mean())}
+        log(f"[data] native vs PIL val batch (u8): {json.dumps(out['native_vs_pil'])}")
+        if not (diff.max() <= 1 and (diff > 0).mean() < 0.02):
+            raise SystemExit(f"native decode vs PIL: {out['native_vs_pil']}")
+
+    # the fed paths, at the config's thread count with the best decoder
+    decoder, n_threads = decoders[0], cfg0.DATALOADER.NUM_WORKERS
+    cfg, train, val, C, cams = loaders(n_threads, decoder)
+    native_decoder.available = real_available
+    device = torch.device("cuda")
+
+    def fed(loader, put, consume):
+        it = prefetch(loader, put)
+        consume(next(it))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = 0
+        for item in it:
+            n += consume(item)
+        torch.cuda.synchronize()
+        return n / (time.perf_counter() - t0), time.perf_counter() - t0
+
+    def put(*arrays):
+        """The engines' copy (``extract_features``, ``do_train``)."""
+        return tuple(torch.from_numpy(a).to(device, non_blocking=True) for a in arrays)
+
+    def put_val(b):
+        imgs, cams = put(b["packed"], b["camids"])
+        return {m: imgs[:, i].contiguous() for i, m in enumerate(sm.MODALITIES)}, cams
+
+    def eval_consume(item):
+        artifact(*item)
+        return item[1].shape[0]
+
+    eval_rate, eval_s = fed(val, put_val, eval_consume)
+    device_rate = cfg.TEST.IMS_PER_BATCH / artifact_ms * 1e3
+    out["fed_eval"] = {"samples_per_s": eval_rate, "seconds": eval_s,
+                       "device_only_samples_per_s": device_rate,
+                       "phase4_samples_per_s": report["slice"]["bf16_forward"]["samples_per_s"],
+                       "card_waits_share": max(0.0, 1.0 - eval_rate / device_rate),
+                       "decoder": val.decoder, "threads": n_threads}
+    log(f"[data] fed eval: val loader → prefetch → copy → fixed artifact: "
+        f"{json.dumps(out['fed_eval'])}")
+
+    spec = sm.ModelSpec.from_config(cfg, num_classes=C, camera_num=cams)
+    model = sm.init_signal(spec, seed=cfg.SOLVER.SEED).to(device)
+    optimizer = make_optimizer(model, cfg)
+    set_lr(optimizer, *schedule_coeffs(cfg, 1))
+    step = make_train_step(model, cfg, C, optimizer, device_augment=True,
+                           gen=torch.Generator(device="cuda").manual_seed(16))
+    losses = []
+
+    def train_consume(item):
+        loss, _ = step(*item)
+        losses.append(loss)
+        return item[0].shape[0]
+
+    train_rate, train_s = fed(train, lambda b: put(b["packed"], b["pids"], b["camids"]),
+                              train_consume)
+    step_ms = report["train"]["bf16_step"]["ms_per_step"]
+    device_rate = cfg.SOLVER.IMS_PER_BATCH / step_ms * 1e3
+    out["fed_train"] = {"samples_per_s": train_rate, "seconds": train_s, "steps": len(losses),
+                        "device_only_samples_per_s": device_rate,
+                        "card_waits_share": max(0.0, 1.0 - train_rate / device_rate),
+                        "decoder": train.decoder, "threads": n_threads,
+                        "loss_first_last": [losses[0].item(), losses[-1].item()]}
+    log(f"[data] fed train: train loader → prefetch → copy → train step: "
+        f"{json.dumps(out['fed_train'])}")
+    if not all(math.isfinite(x.item()) for x in losses):
+        raise SystemExit("fed train: non-finite loss")
+    report["host_data"] = out
+    shutil.rmtree(work)
+    del model, optimizer, step
+
+
 def run_main_path(torch, report):
     """Phase 5: the test CLI end to end on the synthetic config."""
     from signal_tpu_torch.cli import test_main
@@ -1119,6 +1448,8 @@ def main() -> int:
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     report = {"device": name, "nvidia_smi": smi, "torch": torch.__version__}
 
+    from signal_tpu_torch.utils.flops import peaks_for
+
     check_build(torch, report)
     peaks = peaks_for(name)
     rows = check_attention(torch, report, peaks)
@@ -1131,6 +1462,8 @@ def main() -> int:
     check_accumulation(torch, report)
     check_remat_policies(torch, report)
     check_reranking(torch, report)
+    artifact, artifact_ms, serving_launches = check_serving(torch, report)
+    check_host_data(torch, report, artifact, artifact_ms)
 
     def entry(kernel, source, replaces, rows, launches):
         bf16, fp32 = rows["main-bf16"], rows["main-fp32"]
@@ -1144,6 +1477,7 @@ def main() -> int:
     fwd = entry("attention_fwd", "signal_tpu_torch/csrc/attention_fwd.cu",
                 "signal_tpu/ops/flash_attention.py:50", rows, train_launches["attention_fwd"])
     fwd.update(launches_eval=eval_launches, launches_recipe=recipe_launches["attention_fwd"],
+               launches_serving=serving_launches,
                ms_train_shape=rows["train-bf16"]["ms"],
                bound_ms_train_shape=rows["train-bf16"]["bound_ms"])
     bwd_entry = entry("attention_bwd", "signal_tpu_torch/csrc/attention_bwd.cu",

@@ -83,6 +83,7 @@ def main() -> int:
     from signal_tpu_torch.models import signal_model as sm
     from signal_tpu_torch.ops.flash_attention import attention_bwd_cuda, attention_fwd_cuda
     from signal_tpu_torch.solver import make_optimizer, schedule_coeffs, set_lr
+    from signal_tpu_torch.utils.flops import peak_flops_per_chip, signal_analytic_flops
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -173,9 +174,14 @@ def main() -> int:
         "top_kernels": [{"name": n[:120], "ms": ms, "launches": c} for n, ms, c in by_name[:20]],
         "peak_memory_gib": peak_gib,
     }
+    # model FLOPs (forward + backward, no remat replay) over the host-clock
+    # time and the published bf16 peak
+    report["analytic_tflop_per_step"] = signal_analytic_flops(spec, B, train=True) / 1e12
+    report["mfu"] = report["analytic_tflop_per_step"] / (ms_step / 1e3) / \
+        (peak_flops_per_chip(torch.cuda.get_device_name(0)) / 1e12)
     for key in ("ms_per_step", "samples_per_s", "stage_ms", "device_busy_ms_per_step",
                 "device_idle_share", "kernel_launches_per_step", "ms_by_kind",
-                "peak_memory_gib"):
+                "peak_memory_gib", "analytic_tflop_per_step", "mfu"):
         print(f"[profile] {key}: {json.dumps(report[key])}")
     for row in report["top_kernels"]:
         print(f"[kernel] {row['ms']:.3f} ms x{row['launches']} {row['name']}")

@@ -8,11 +8,14 @@ transform applied INDEPENDENTLY per modality (each torchvision call drew
 fresh randomness, `bases.py:103`), collated into {'RGB','NI','TI'} arrays
 plus one packed [B, 3modal, 3ch, H, W] buffer.
 
-* decode runs in a thread pool with double-buffered prefetch (PIL releases
-  the GIL in its codecs);
-* every batch takes the PIL path: the JAX package's whole-batch native
-  C++ decoder (`signal_tpu/data/native_decoder.py`) is not ported yet
-  (ROADMAP Queue 1 item 9);
+* a batch of on-disk jpgs (3-file tuples or packed singles) under a
+  deterministic transform (val bilinear; train bicubic when the
+  augmentation runs on the device) is decoded whole by the native C++
+  decoder (`data/native_decoder.py`, built at first use); every other
+  batch, and every batch where the decoder cannot be built (no libjpeg),
+  takes the PIL path. ``loader.decoder`` says which served the last batch;
+* PIL decode runs in a thread pool with double-buffered prefetch (PIL
+  releases the GIL in its codecs);
 * the train loader drops the final partial batch; the eval loader pads
   the tail batch and reports the true count so the evaluator can slice
   it off.
@@ -89,6 +92,7 @@ class _BatchLoader:
         # ship raw uint8 pixels; normalization runs on the device (the
         # engine's eval step), quartering host→device bytes
         self.emit_u8 = emit_u8
+        self.decoder: Optional[str] = None   # 'native' | 'pil': the last batch's
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -110,6 +114,50 @@ class _BatchLoader:
         name = (paths if isinstance(paths, str) else paths[0]).split("/")[-1]
         return arrs, pid, camid, trackid, name
 
+    def _native_eligible(self, batch_idx) -> bool:
+        """Whole-batch C++ decode applies to deterministic decode+resize
+        transforms (val bilinear; train bicubic when augmentation runs on
+        the device) over on-disk jpgs (3-file tuples or packed singles)."""
+        if not hasattr(self.transform, "native_filter"):
+            return False
+        paths0 = [self.records[i][0] for i in batch_idx]
+        if not (all(isinstance(p, str) and p.endswith(".jpg") for p in paths0)
+                or all(isinstance(p, tuple) and all(q.endswith(".jpg") for q in p)
+                       for p in paths0)):
+            return False
+        from signal_tpu_torch.data import native_decoder
+
+        return native_decoder.available()
+
+    def _decode_native_batch(self, batch_idx, pad_count: int) -> Dict:
+        from signal_tpu_torch.data import native_decoder as nd
+
+        records = [self.records[i] for i in batch_idx]
+        paths0 = [r[0] for r in records]
+        h, w = self.transform.size
+        kw = dict(num_threads=self.num_threads, filter=self.transform.native_filter)
+        norm = (self.transform.mean, self.transform.std)
+        if isinstance(paths0[0], str):
+            out = (nd.decode_batch_packed_u8(paths0, h, w, **kw) if self.emit_u8
+                   else nd.decode_batch_packed(paths0, h, w, *norm, **kw))
+        else:
+            flat = [q for p in paths0 for q in p]
+            out = (nd.decode_batch_u8(flat, h, w, **kw) if self.emit_u8
+                   else nd.decode_batch(flat, h, w, *norm, **kw))
+        arrs = out.reshape(len(records), 3, 3, h, w).numpy()   # [B, 3m, 3c, H, W]
+        batch = {
+            "imgs": {"RGB": arrs[:, 0], "NI": arrs[:, 1], "TI": arrs[:, 2]},
+            "packed": arrs,
+            "pids": np.asarray([r[1] for r in records], np.int64),
+            "camids": np.asarray([r[2] for r in records], np.int64),
+            "trackids": np.asarray([r[3] for r in records], np.int64),
+            "valid": arrs.shape[0] - pad_count,
+        }
+        if self.include_paths:
+            batch["names"] = [(p if isinstance(p, str) else p[0]).split("/")[-1]
+                              for p in paths0]
+        return batch
+
     def __iter__(self) -> Iterator[Dict]:
         indices = list(self.index_source())
         self._epoch += 1
@@ -129,17 +177,27 @@ class _BatchLoader:
             for bi, batch_idx in enumerate(batches):
                 is_last = bi == len(batches) - 1
                 pad = pad_count if is_last else 0
-                keys = [int(np.random.SeedSequence(
-                            (self.seed, self._epoch, bi,
-                             self.key_offset + j)).generate_state(1)[0])
-                        for j in range(len(batch_idx))]
-                futs = [pool.submit(self._load_one, idx, k)
-                        for idx, k in zip(batch_idx, keys)]
+                if self._native_eligible(batch_idx):
+                    futs = [pool.submit(self._decode_native_batch, batch_idx, pad)]
+                    decoder = "native"
+                else:
+                    keys = [int(np.random.SeedSequence(
+                                (self.seed, self._epoch, bi,
+                                 self.key_offset + j)).generate_state(1)[0])
+                            for j in range(len(batch_idx))]
+                    futs = [pool.submit(self._load_one, idx, k)
+                            for idx, k in zip(batch_idx, keys)]
+                    decoder = "pil"
                 if pending is not None:
-                    yield self._collate(*pending)
-                pending = (futs, pad)
+                    yield self._finish(*pending)
+                pending = (futs, pad, decoder)
             if pending is not None:
-                yield self._collate(*pending)
+                yield self._finish(*pending)
+
+    def _finish(self, futs, pad_count: int, decoder: str) -> Dict:
+        batch = futs[0].result() if decoder == "native" else self._collate(futs, pad_count)
+        self.decoder = decoder
+        return batch
 
     def _collate(self, futs, pad_count: int) -> Dict:
         items = [f.result() for f in futs]
@@ -217,9 +275,10 @@ def make_dataloader(cfg, dataset: Optional[ReIDDataset] = None,
     if dataset is None:
         dataset = build_dataset(cfg.DATASETS.NAMES, cfg.DATASETS.ROOT_DIR)
 
-    # device-side augmentation: decode+bicubic-resize on the host, flip/
-    # pad+crop/erase in the train step (not ported yet: ROADMAP Queue 1
-    # item 9); the full host-side TrainTransform when disabled.
+    # device-side augmentation: decode+bicubic-resize on the host (the
+    # native decoder for jpg batches), flip/pad+crop/erase in the train
+    # step (`data/augment.py`); the full host-side TrainTransform when
+    # disabled.
     device_augment = bool(getattr(cfg.DATALOADER, "DEVICE_AUGMENT", False))
     # ship uint8 over the wire, Normalize on the device (the eval step
     # handles both dtypes)

@@ -94,6 +94,9 @@ class TrainTransform:
 
 
 class ValTransform:
+    # the native decoder's filter matching this transform's resize
+    native_filter = "bilinear"
+
     def __init__(self, size: Tuple[int, int], mean, std):
         self.size = tuple(size)
         self.mean, self.std = mean, std
@@ -115,7 +118,11 @@ class ValTransform:
 
 class RawTrainDecode:
     """Decode-only train transform: bicubic resize + normalize, NO
-    flip/crop/erase — those run on the device in the train step."""
+    flip/crop/erase — those run on the device in the train step. The
+    native decoder takes whole jpg batches on this path (filter
+    'bicubic'); ``__call__`` serves the PIL path."""
+
+    native_filter = "bicubic"
 
     def __init__(self, size: Tuple[int, int], mean, std):
         self.size = tuple(size)

@@ -211,9 +211,9 @@ def vit_forward(vit: VisionTransformer, images: torch.Tensor, cv_emb=None, *,
     * 'dots': also the outputs of the block's non-batched products (q, k,
       v, out-proj, fc, proj). A selective checkpoint whose policy saves
       ``aten.mm``'s outputs: the products are the only ops it must tell
-      apart, and it does so inside ``_MatmulF32`` and ``_FusedAttention``
-      as they are (the attention kernel is a ctypes call the policy never
-      sees, so it is recomputed);
+      apart, and it does so inside ``_MatmulF32`` and the attention
+      operator as they are (``signal_tpu_torch::attention_fwd`` is not a
+      product, so it is recomputed);
     * 'attn': ``attn_out``; 'attn_mlp': ``attn_out`` and ``mlp_hidden``.
       Explicit checkpoint segments (:func:`_block`): a segment's inputs are
       what it keeps, so the kept set is exact whatever ops a branch runs;

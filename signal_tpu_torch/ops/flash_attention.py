@@ -3,7 +3,9 @@
 
 ``flash_attention`` is the post-projection attention the ViT blocks call
 through ``mha(use_flash=True)``. It casts q, k, v to the compute dtype and
-runs :class:`_FusedAttention`, the port of the JAX ``custom_vjp``:
+calls the registered operator ``torch.ops.signal_tpu_torch.attention_fwd``
+(:func:`attention_fwd`), whose autograd formula is the port of the JAX
+``custom_vjp``:
 
 * on CPU tensors the forward is :func:`flash_attention_reference` and the
   backward :func:`flash_attention_bwd_reference`, the plain PyTorch
@@ -12,6 +14,11 @@ runs :class:`_FusedAttention`, the port of the JAX ``custom_vjp``:
   (:func:`attention_fwd_cuda`) and the backward ``csrc/attention_bwd.cu``
   (:func:`attention_bwd_cuda`), or raises. There is no fallback from one
   to the other.
+
+Training, eval and ``torch.export`` take this one route to the kernel.
+The operator has a fake implementation for tracing (a ctypes call cannot
+be traced), and it is what ``torch.export`` keeps in a serving graph
+(``signal_tpu_torch/serving.py``).
 
 The kernels replace ``_attn_kernel`` and ``_attn_bwd_kernel``. At the
 ViT-B shape ([3B, 129, 768], 12 heads of 64, bf16) both do tens of FLOP
@@ -189,6 +196,30 @@ def attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 attention_fwd_cuda.launches = 0
 
 
+@torch.library.custom_op("signal_tpu_torch::attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  num_heads: int) -> torch.Tensor:
+    """The forward kernel as a registered operator,
+    ``torch.ops.signal_tpu_torch.attention_fwd``: on the card
+    :func:`attention_fwd_cuda` (which raises on a shape the kernel does not
+    take), on the CPU :func:`flash_attention_reference`. Its backward
+    (:func:`_attention_bwd`) saves only q, k and v and recomputes P. An
+    exported graph holds it as one node, and a graph that holds it loads
+    only where this module has been imported."""
+    return attention_fwd_cuda(q, k, v, num_heads)
+
+
+@attention_fwd.register_kernel("cpu")
+def _attention_fwd_cpu(q, k, v, num_heads):
+    return flash_attention_reference(q, k, v, num_heads)
+
+
+@attention_fwd.register_fake
+def _attention_fwd_fake(q, k, v, num_heads):
+    return torch.empty_like(q)
+
+
 def attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
                        num_heads: int):
     """Launch ``csrc/attention_bwd.cu`` on the current stream: in bf16 its
@@ -227,28 +258,25 @@ def attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: tor
 attention_bwd_cuda.launches = 0
 
 
-class _FusedAttention(torch.autograd.Function):
-    """The JAX ``custom_vjp`` (`flash_attention.py:195-209`): saves only q,
-    k and v; the backward recomputes P. CPU tensors take the plain
-    versions, CUDA tensors the kernels."""
+def _attention_setup(ctx, inputs, output):
+    q, k, v, num_heads = inputs
+    ctx.num_heads = num_heads
+    ctx.save_for_backward(q, k, v)
 
-    @staticmethod
-    def forward(ctx, q, k, v, num_heads: int):
-        ctx.num_heads = num_heads
-        ctx.save_for_backward(q, k, v)
-        if q.device.type == "cpu":
-            return flash_attention_reference(q, k, v, num_heads)
-        return attention_fwd_cuda(q, k, v, num_heads)
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        g = g.to(q.dtype).contiguous()   # `flash_attention.py:206`
-        if q.device.type == "cpu":
-            dq, dk, dv = flash_attention_bwd_reference(q, k, v, g, ctx.num_heads)
-        else:
-            dq, dk, dv = attention_bwd_cuda(q, k, v, g, ctx.num_heads)
-        return dq, dk, dv, None
+def _attention_bwd(ctx, g):
+    """The JAX ``custom_vjp``'s backward (`flash_attention.py:195-209`):
+    CPU tensors take the plain version, CUDA tensors the kernel."""
+    q, k, v = ctx.saved_tensors
+    g = g.to(q.dtype).contiguous()   # `flash_attention.py:206`
+    if q.device.type == "cpu":
+        dq, dk, dv = flash_attention_bwd_reference(q, k, v, g, ctx.num_heads)
+    else:
+        dq, dk, dv = attention_bwd_cuda(q, k, v, g, ctx.num_heads)
+    return dq, dk, dv, None
+
+
+attention_fwd.register_autograd(_attention_bwd, setup_context=_attention_setup)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -258,4 +286,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (`signal_tpu/ops/flash_attention.py:258-259`) → [B, Lq, D] in
     ``compute_dtype``, differentiable in q, k and v."""
     q, k, v = (t.to(compute_dtype).contiguous() for t in (q, k, v))
-    return _FusedAttention.apply(q, k, v, num_heads)
+    return attention_fwd(q, k, v, num_heads)

@@ -3,8 +3,8 @@
 * ``flash_attention_bwd_reference`` (the backward kernel's plain version)
   against the JAX package's ``_fused_attention_bwd_impl``, which runs the
   Pallas backward kernel in interpret mode on the CPU;
-* the port's ``flash_attention`` gradients (``_FusedAttention`` on CPU
-  tensors) against ``jax.grad`` of the JAX ``flash_attention``, following
+* the port's ``flash_attention`` gradients (the registered operator's
+  autograd formula on CPU tensors) against ``jax.grad`` of the JAX ``flash_attention``, following
   `tests/test_flash_attention.py:46-79`;
 * ``linear``'s gradients (the bf16 product's VJP) against ``jax.grad``.
 """
@@ -19,11 +19,7 @@ from signal_tpu.ops import attention as jatt
 from signal_tpu.ops.flash_attention import _fused_attention_bwd_impl
 from signal_tpu.ops.flash_attention import flash_attention as jax_flash
 from signal_tpu_torch.ops import attention as tatt
-from signal_tpu_torch.ops.flash_attention import (
-    _FusedAttention,
-    flash_attention,
-    flash_attention_bwd_reference,
-)
+from signal_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd_reference
 
 from _torch_parity import to_np
 
@@ -67,7 +63,7 @@ def test_bwd_plain_version_matches_jax_kernel(B, Lq, Lk, D, H, dtype):
 
 
 def test_fused_attention_has_a_gradient_on_the_cpu():
-    """The autograd Function carries the plain backward: gradients of
+    """The operator's autograd formula carries the plain backward: gradients of
     ``flash_attention`` are the plain backward's, with the cotangent cast
     to the operand dtype (`flash_attention.py:206`)."""
     q, k, v, g = (torch.from_numpy(a) for a in
@@ -81,7 +77,8 @@ def test_fused_attention_has_a_gradient_on_the_cpu():
     for a, b in zip(got, want):
         assert a.dtype == torch.float32      # the cast's VJP widens the bf16 gradient
         assert torch.equal(a, b.float())
-    assert _FusedAttention.__name__ in type(out.grad_fn).__name__
+    # the operator's own node, not an autograd Function of the caller's
+    assert "signal_tpu_torch_attention_fwd" in type(out.grad_fn).__name__
 
 
 def _grads_jax(fn, dt, q, k, v):

@@ -174,3 +174,22 @@ def test_cuda_device_without_a_card_raises():
         pytest.skip("a CUDA device is present; the refusal is for hosts without one")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
+
+
+def test_prefetch_yields_in_order_and_reraises():
+    """The port's prefetch yields ``put``'s results in order, ``depth``
+    ahead in its thread, and re-raises the worker's error at the
+    consumer."""
+    from signal_tpu_torch.data.prefetch import prefetch
+
+    host = np.arange(12, dtype=np.uint8).reshape(3, 4)
+    out = list(prefetch(range(5), lambda i: torch.from_numpy(host + i), depth=2))
+    assert [int(t[0, 0]) for t in out] == [0, 1, 2, 3, 4]
+
+    def bad(x):
+        if x == 3:
+            raise ValueError("boom")
+        return x
+
+    with pytest.raises(ValueError, match="boom"):
+        list(prefetch(range(6), bad))
