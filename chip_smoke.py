@@ -11,9 +11,11 @@ Phases (any failure exits non-zero; nothing is caught):
      a bf16 kernel without them fails);
   3. kernels vs plain: each kernel's wrapper (attention forward and
      backward) against its plain PyTorch version on the card, at the main
-     paths' shapes, at odd ones and at every tile edge of the bf16 kernels,
-     with the tolerance stated; kernel, plain and library times (CUDA
-     events) and the achieved TFLOP/s;
+     paths' shapes, at odd ones and at every tile edge of the bf16 kernels
+     (the backward's long route past 160 tokens included), with the
+     tolerance stated; kernel, plain and library times (CUDA events) and
+     the achieved TFLOP/s, also at the variants' lengths (141, 193, 211,
+     223 forward; 193 and 211 backward);
   4. eval slice: ``forward_eval`` of the flagship RGBNT201 model (CLIP
      ViT-B/16, width 768, 12 heads, 256×128, SIE, SIM TOPK 80; random
      weights from a seed) on B=128 random packed uint8 images, kernel path
@@ -60,11 +62,20 @@ Phases (any failure exits non-zero; nothing is caught):
      host has, at the config's thread count and at the core count, in host
      samples/s; the fed paths end to end (loader → prefetch → copy →
      phase 12's artifact; → the train step) beside the device-only figures,
-     and the share of time the card waits on the host.
+     and the share of time the card waits on the host;
+ 14. the CLIP tower's variants at the flagship widths (random weights from
+     SOLVER.SEED): ADAPTER, PROMPT, PROMPT + ADAPTER, FROZEN (LoRA r 8),
+     MOE_EXPERTS 4 at MOE_TOPK 1 and 2 (capacity 1.25), and STRIDE_SIZE 12
+     (211 tokens: the backward's long route): ``forward_eval`` at B = 128
+     and one train step at B = 64, kernel path against plain path as
+     phases 4 and 6; launches per eval forward, train forward and backward
+     (12 / 24 / 12, the prompted towers 36 / 72 / 36), ms per step by the
+     host clock and device time, peak memory (no MFU: ``utils/flops``
+     counts the plain tower).
 Phases 4 and 6 also print MFU: the analytic model FLOPs
 (``utils/flops.py``) over the measured time and the card's bf16 peak.
-Phases 5, 7, 8 and 12 are the main paths: every launch count is zeroed just
-before each and read just after. Then the script prints the kernel table
+Phases 5, 7, 8, 12 and 14 are the main paths: every launch count is zeroed
+just before each and read just after. Then the script prints the kernel table
 as one JSON line, and as its last line ``{"ok": true, "device": {...}}``.
 Details go to chiprun_out/chip_smoke.json. It imports nothing of JAX or of
 the JAX package.
@@ -106,6 +117,16 @@ EDGE_LENGTHS = [(n, n) for n in (1, 15, 16, 17, 129, 145)] + [
     (1, 145), (145, 1), (17, 129), (129, 16), (15, 17)]
 EDGES = [(f"edge-{lq}x{lk}-hd{hd}", 2, lq, lk, 2 * hd, 2)
          for hd in (8, 24, 64, 128) for lq, lk in EDGE_LENGTHS]
+# past 160 tokens the bf16 backward takes its long route (a rows and a cols
+# kernel over chunks of 32): lengths across its 64-row tiles, the train
+# shapes of STRIDE_SIZE 12 (211) and a 384×128 input (193), and cross
+# attention both ways, at head dims 64 and 128
+LONG_EDGES = [(f"edge-{lq}x{lk}-hd{hd}", 2, lq, lk, 2 * hd, 2) for hd in (64, 128)
+              for lq, lk in [(n, n) for n in (161, 176, 193, 211, 223, 256)]
+              + [(211, 129), (129, 211)]]
+# the forward at the variants' lengths: the prompted blocks' 141, and 193,
+# 211 and 223 (the second pass over keys)
+LONG_LENGTHS = (141, 193, 211, 223)
 
 
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -210,7 +231,8 @@ def check_attention(torch, report, peaks):
         ("odd-bf16", 16, 9, 9, 384, 6, torch.bfloat16),
         ("odd-fp32", 16, 9, 9, 384, 6, torch.float32),
         ("long-hd128-bf16", 8, 17, 300, 256, 2, torch.bfloat16),   # two passes over keys
-    ] + [(*edge, torch.bfloat16) for edge in EDGES]
+    ] + [(f"len{L}-bf16", 192, L, L, 768, 12, torch.bfloat16) for L in LONG_LENGTHS] + [
+        (*edge, torch.bfloat16) for edge in EDGES]
     rows = {}
     for name, B, Lq, Lk, D, H, dt in cases:
         q = torch.randn(B, Lq, D, device="cuda", generator=gen).to(dt)
@@ -228,7 +250,7 @@ def check_attention(torch, report, peaks):
         ok = bool((err <= tol).all())
         row = {"shape": [B, Lq, Lk, D, H], "dtype": str(dt).split(".")[1],
                "max_abs_err": err.max().item(), "tolerance": tol_text}
-        if name.startswith(("main", "train")):
+        if name.startswith(("main", "train", "len")):
             hd = D // H
             elt = q.element_size()
             nbytes = (2 * B * Lq * D + 2 * B * Lk * D) * elt      # q, k, v read; o written
@@ -274,8 +296,12 @@ def check_attention_bwd(torch, report, peaks):
         ("cross-fp32", 128, 40, 7, 512, 8, torch.float32),
         ("odd-bf16", 16, 9, 9, 384, 6, torch.bfloat16),
         ("odd-fp32", 16, 9, 9, 384, 6, torch.float32),
-        ("longest-bf16", 8, 160, 160, 256, 2, torch.bfloat16),    # the bf16 kernel's limit
-    ] + [(*edge, torch.bfloat16) for edge in EDGES]
+        ("longest-fused-bf16", 8, 160, 160, 256, 2, torch.bfloat16),  # the fused kernel's limit
+        # the long route at the train shapes past 160 tokens: STRIDE_SIZE 12
+        # (211 tokens) and a 384×128 input (193)
+        ("long211-bf16", 192, 211, 211, 768, 12, torch.bfloat16),
+        ("long193-bf16", 192, 193, 193, 768, 12, torch.bfloat16),
+    ] + [(*edge, torch.bfloat16) for edge in EDGES + LONG_EDGES]
     rows = {}
     for name, B, Lq, Lk, D, H, dt in cases:
         q, g = (torch.randn(B, Lq, D, device="cuda", generator=gen).to(dt) for _ in "qg")
@@ -293,7 +319,7 @@ def check_attention_bwd(torch, report, peaks):
                "max_abs_err_dq_dk_dv": [e.max().item() for e in errs],
                "max_abs_want_dq_dk_dv": [b.float().abs().max().item() for b in want],
                "tolerance": tol_text}
-        if name.startswith("main"):
+        if name.startswith(("main", "long")):
             hd = D // H
             elt = q.element_size()
             # q, g read and dq written (Lq); k, v read and dk, dv written (Lk)
@@ -396,7 +422,7 @@ def check_slice(torch, report):
         model.spec = dataclasses.replace(spec, compute_dtype=dtype, use_flash=use_flash)
         before = attention_fwd_cuda.launches
         with torch.inference_mode():
-            patches, cls = sm._encode(model, imgs, cams)
+            patches, cls, _ = sm._encode(model, imgs, cams)
             fused, masks = sim_forward(model.SIM, patches, cls, k=spec.topk,
                                        compute_dtype=model.spec.cdtype)
             feats = sm.forward_eval(model, imgs, cams)
@@ -468,14 +494,112 @@ def check_slice(torch, report):
     del model
 
 
+class Paths:
+    """One model's train-step gradients on the kernel path and on the
+    plain-attention path, from the same weights and batch (phases 6 and
+    14). ``streams``: encoder calls per batch (3 for the prompted tower),
+    for the launch counts each path must show."""
+
+    def __init__(self, torch, model, spec, cfg, imgs, pids, cams, streams: int = 1):
+        from signal_tpu_torch.losses import make_loss
+
+        self.torch, self.model, self.spec, self.cfg = torch, model, spec, cfg
+        self.imgs, self.pids, self.cams = imgs, pids, cams
+        self.layers = streams * spec.layers
+        self.loss_fn = make_loss(cfg, spec.num_classes)
+        self.params = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        self.state0 = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def loss_and_grads(self, dtype: str, use_flash: bool, plain_bwd: bool = False):
+        """The step's loss and every gradient. plain_bwd: the backward
+        kernel's plain version on the card in its place (the forward kernel
+        stays)."""
+        from signal_tpu_torch.losses import total_train_loss
+        from signal_tpu_torch.models import signal_model as sm
+        from signal_tpu_torch.ops import flash_attention as fa
+        from signal_tpu_torch.ops.attention import true_fp32
+
+        torch, model, cfg = self.torch, self.model, self.cfg
+        kernel = fa.attention_bwd_cuda
+        model.load_state_dict(self.state0)        # the BNNecks' running stats move
+        model.spec = dataclasses.replace(self.spec, compute_dtype=dtype, use_flash=use_flash)
+        fwd, bwd = fa.attention_fwd_cuda.launches, kernel.launches
+        if plain_bwd:
+            fa.attention_bwd_cuda = fa.flash_attention_bwd_reference
+        try:
+            with true_fp32():
+                o = sm.forward_train(model, self.imgs, self.cams)
+                loss = total_train_loss(o, self.pids, self.loss_fn,
+                                        gram_weight=cfg.MODEL.Gram_Loss_weight,
+                                        pat_weight=cfg.MODEL.PAT_Loss_weight,
+                                        moe_weight=cfg.MODEL.MoE_Loss_weight)
+                grads = torch.autograd.grad(loss, [p for _, p in self.params],
+                                            allow_unused=True)
+            torch.cuda.synchronize()
+        finally:
+            fa.attention_bwd_cuda = kernel
+        launched = (fa.attention_fwd_cuda.launches - fwd, kernel.launches - bwd)
+        n = self.layers
+        want = (2 * n, 0 if plain_bwd else n) if use_flash else (0, 0)
+        if launched != want:
+            raise SystemExit(f"train {dtype} use_flash={use_flash}: (fwd, bwd) launches "
+                             f"{launched}, want {want}")
+        return loss.item(), {n_: (torch.zeros_like(p) if g is None else g)
+                             for (n_, p), g in zip(self.params, grads)}
+
+    def tower_grads(self, use_flash: bool):
+        """Gradients of a smooth loss of the bf16 ViT tower (remat on): the
+        mean square of its patch and class tokens."""
+        from signal_tpu_torch.models import signal_model as sm
+        from signal_tpu_torch.ops.attention import true_fp32
+
+        model = self.model
+        model.load_state_dict(self.state0)
+        model.spec = dataclasses.replace(self.spec, compute_dtype="bfloat16",
+                                         use_flash=use_flash)
+        with true_fp32():
+            patches, cls, _ = sm._encode(model, self.imgs, self.cams, remat=self.spec.remat)
+            loss = patches.float().square().mean() + cls.float().square().mean()
+            grads = self.torch.autograd.grad(loss, [p for _, p in self.params],
+                                             allow_unused=True)
+        return {n: g for (n, _), g in zip(self.params, grads) if g is not None}
+
+    def hold_fp32(self, g_k, g_plain, label: str):
+        """fp32 gradients of the kernel path against the plain path: the
+        paths differ in where the scale is applied and in summation order,
+        so each tensor is held by allclose(rtol 1e-3, atol 1e-4·max|g|);
+        one that is zero on the plain path (SIM's W_q/W_k feed only the
+        top-k; a bias in front of a BatchNorm) must be noise on both. →
+        (largest relative L2 error, the zero tensors' names)."""
+        worst, zero = 0.0, []
+        for n, b in g_plain.items():
+            a = g_k[n]
+            if b.norm().item() < 1e-6:
+                zero.append(n)
+                if a.norm().item() >= 1e-5:
+                    raise SystemExit(f"{label}: fp32 gradient of {n} zero on the plain path, "
+                                     f"norm {a.norm().item()} on the kernel path")
+                continue
+            scale = b.abs().max().item()
+            worst = max(worst, ((a - b).norm() / b.norm()).item())
+            if not self.torch.allclose(a, b, rtol=1e-3, atol=1e-4 * scale):
+                raise SystemExit(f"{label}: fp32 gradient of {n}, kernel path vs plain path "
+                                 f"max abs err {(a - b).abs().max().item()} (max |g| {scale})")
+        return worst, zero
+
+
+def cosines(torch, a, b, names):
+    return {n: torch.nn.functional.cosine_similarity(a[n].flatten().float(),
+                                                     b[n].flatten().float(), dim=0).item()
+            for n in names}
+
+
 def check_train_step(torch, report):
     """Phase 6: the flagship train step, kernel path vs plain-attention path."""
     from signal_tpu_torch.config import load_config
     from signal_tpu_torch.data.augment import normalize_images
     from signal_tpu_torch.engine.train import make_train_step
-    from signal_tpu_torch.losses import make_loss, total_train_loss
     from signal_tpu_torch.models import signal_model as sm
-    from signal_tpu_torch.ops.attention import true_fp32
     from signal_tpu_torch.ops.flash_attention import attention_bwd_cuda, attention_fwd_cuda
     from signal_tpu_torch.solver import make_optimizer, schedule_coeffs, set_lr
 
@@ -493,75 +617,13 @@ def check_train_step(torch, report):
     pids = ids.repeat_interleave(K)                                # P×K: 8 ids × 8
     cams = torch.randint(0, 4, (B,), device="cuda", generator=gen)
     imgs = normalize_images(u8, cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD)
-    loss_fn = make_loss(cfg, C)
-    params = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    paths = Paths(torch, model, spec, cfg, imgs, pids, cams)
+    loss_and_grads, tower_grads, state0 = paths.loss_and_grads, paths.tower_grads, paths.state0
     out = {}
 
-    from signal_tpu_torch.ops import flash_attention as fa
-
-    def loss_and_grads(dtype: str, use_flash: bool, plain_bwd: bool = False):
-        """The step's loss and every gradient. plain_bwd: the backward
-        kernel's plain version on the card in its place (the forward kernel
-        stays)."""
-        model.load_state_dict(state0)        # the BNNecks' running stats move
-        model.spec = dataclasses.replace(spec, compute_dtype=dtype, use_flash=use_flash)
-        fwd, bwd = attention_fwd_cuda.launches, attention_bwd_cuda.launches
-        if plain_bwd:
-            fa.attention_bwd_cuda = fa.flash_attention_bwd_reference
-        try:
-            with true_fp32():
-                o = sm.forward_train(model, imgs, cams)
-                loss = total_train_loss(o, pids, loss_fn, gram_weight=cfg.MODEL.Gram_Loss_weight,
-                                        pat_weight=cfg.MODEL.PAT_Loss_weight)
-                grads = torch.autograd.grad(loss, [p for _, p in params], allow_unused=True)
-            torch.cuda.synchronize()
-        finally:
-            fa.attention_bwd_cuda = attention_bwd_cuda
-        launched = (attention_fwd_cuda.launches - fwd, attention_bwd_cuda.launches - bwd)
-        want = ((2 * spec.layers, 0 if plain_bwd else spec.layers) if use_flash else (0, 0))
-        if launched != want:
-            raise SystemExit(f"train {dtype} use_flash={use_flash}: (fwd, bwd) launches "
-                             f"{launched}, want {want}")
-        return loss.item(), {n: (torch.zeros_like(p) if g is None else g)
-                             for (n, p), g in zip(params, grads)}
-
-    def tower_grads(use_flash: bool):
-        """Gradients of a smooth loss of the bf16 ViT tower (remat on): the
-        mean square of its patch and class tokens."""
-        model.load_state_dict(state0)
-        model.spec = dataclasses.replace(spec, compute_dtype="bfloat16", use_flash=use_flash)
-        with true_fp32():
-            patches, cls = sm._encode(model, imgs, cams, remat=spec.remat)
-            loss = patches.float().square().mean() + cls.float().square().mean()
-            grads = torch.autograd.grad(loss, [p for _, p in params], allow_unused=True)
-        return {n: g for (n, _), g in zip(params, grads) if g is not None}
-
-    def cosines(a, b, names):
-        return {n: torch.nn.functional.cosine_similarity(a[n].flatten().float(),
-                                                         b[n].flatten().float(), dim=0).item()
-                for n in names}
-
-    # fp32: the paths differ in where the scale is applied and in summation
-    # order; held per tensor by allclose(rtol 1e-3, atol 1e-4·max|g_plain|)
     loss_k, g_k = loss_and_grads("float32", True)
     loss_p, g32 = loss_and_grads("float32", False)
-    worst, zero = 0.0, []
-    for n in g32:
-        a, b = g_k[n], g32[n]
-        if b.norm().item() < 1e-6:
-            # analytically zero (SIM's W_q/W_k feed only the top-k; a bias
-            # in front of a BatchNorm): rounding noise on both paths
-            zero.append(n)
-            if a.norm().item() >= 1e-5:
-                raise SystemExit(f"fp32 gradient of {n}: zero on the plain path, "
-                                 f"norm {a.norm().item()} on the kernel path")
-            continue
-        scale = b.abs().max().item()
-        worst = max(worst, ((a - b).norm() / b.norm()).item())
-        if not torch.allclose(a, b, rtol=1e-3, atol=1e-4 * scale):
-            raise SystemExit(f"fp32 gradient of {n}: kernel path vs plain path max abs err "
-                             f"{(a - b).abs().max().item()} (max |g| {scale})")
+    worst, zero = paths.hold_fp32(g_k, g32, "phase 6")
     out["fp32"] = {"loss_kernel": loss_k, "loss_plain": loss_p,
                    "grad_max_rel_l2": worst, "n_grads": len(g32), "zero_grads": zero}
     log(f"[train] fp32 kernel vs plain path: {json.dumps(out['fp32'])}")
@@ -584,14 +646,14 @@ def check_train_step(torch, report):
     names = [n for n in g32 if n not in zero]
     loss_k, g_k = loss_and_grads("bfloat16", True)
     loss_p, g_p = loss_and_grads("bfloat16", False)
-    step = cosines(g_k, g_p, names)
-    vs32_k, vs32_p = cosines(g_k, g32, names), cosines(g_p, g32, names)
+    step = cosines(torch, g_k, g_p, names)
+    vs32_k, vs32_p = cosines(torch, g_k, g32, names), cosines(torch, g_p, g32, names)
     del g_p, g32
     _, g_b = loss_and_grads("bfloat16", True, plain_bwd=True)
-    bwd_cos = cosines(g_k, g_b, names)
+    bwd_cos = cosines(torch, g_k, g_b, names)
     del g_k, g_b
     t_k, t_p = tower_grads(True), tower_grads(False)
-    tower = cosines(t_k, t_p, [n for n in t_p if n not in zero])
+    tower = cosines(torch, t_k, t_p, [n for n in t_p if n not in zero])
     del t_k, t_p
     low = {k: min(c, key=c.get) for k, c in (("step", step), ("bwd", bwd_cos), ("tower", tower),
                                              ("k32", vs32_k), ("p32", vs32_p))}
@@ -1400,6 +1462,191 @@ def check_host_data(torch, report, artifact, artifact_ms: float):
     del model, optimizer, step
 
 
+# the CLIP tower's variants at the flagship widths: (name, overrides of
+# configs/RGBNT201/Signal.yml)
+VARIANTS = [
+    ("adapter", ["MODEL.ADAPTER", "True"]),
+    ("prompt", ["MODEL.PROMPT", "True"]),
+    ("prompt_adapter", ["MODEL.PROMPT", "True", "MODEL.ADAPTER", "True"]),
+    ("frozen_lora8", ["MODEL.FROZEN", "True"]),
+    ("moe4_top1", ["MODEL.MOE_EXPERTS", "4", "MODEL.MOE_TOPK", "1", "MODEL.MOE_CAPACITY", "1.25"]),
+    ("moe4_top2", ["MODEL.MOE_EXPERTS", "4", "MODEL.MOE_TOPK", "2", "MODEL.MOE_CAPACITY", "1.25"]),
+    ("stride12", ["MODEL.STRIDE_SIZE", "[12, 12]"]),
+]
+
+
+def check_variants(torch, report):
+    """Phase 14: each variant of the CLIP tower at the flagship widths
+    (random weights from SOLVER.SEED): ``forward_eval`` at B = 128, kernel
+    path against the plain-attention path as phase 4 holds it; one train
+    step's fp32 loss and gradients against the plain path as phase 6, and
+    in bf16 the backward kernel against its plain version inside the step
+    (cosine > 0.99) and both kernels through the tower under a smooth loss
+    (held > 0.99 but for MoE, whose router turns on single ulps); then the
+    step as configured (bf16, device augment, Adam, B = 64): launches per
+    eval forward, train forward and backward, ms per step by the host
+    clock and device time, peak memory. → the launches of the driven paths
+    (the counts are zeroed before each and read after; the comparisons'
+    launches are not counted)."""
+    from signal_tpu_torch.config import load_config
+    from signal_tpu_torch.data.augment import normalize_images
+    from signal_tpu_torch.engine.train import make_train_step
+    from signal_tpu_torch.models import signal_model as sm
+    from signal_tpu_torch.ops.flash_attention import attention_bwd_cuda, attention_fwd_cuda
+    from signal_tpu_torch.solver import make_optimizer, schedule_coeffs, set_lr
+
+    C, B_eval = 171, 128
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    driven = {"attention_fwd": 0, "attention_bwd": 0}
+    out = {}
+    for name, opts in VARIANTS:
+        t0 = time.perf_counter()
+        cfg = load_config(str(REPO / "configs/RGBNT201/Signal.yml"), opts)
+        B, K = cfg.SOLVER.IMS_PER_BATCH, cfg.DATALOADER.NUM_INSTANCE
+        spec = sm.ModelSpec.from_config(cfg, num_classes=C, camera_num=4)
+        assert (spec.width, spec.layers, spec.num_heads, spec.topk, spec.use_flash, B) == \
+            (768, 12, 12, 80, True, 64), spec
+        streams = 3 if spec.prompt else 1
+        tokens = spec.h * spec.w + 1 + (12 if spec.prompt else 0)
+        model = sm.init_signal(spec, seed=cfg.SOLVER.SEED).to("cuda")
+        make_optimizer(model, cfg)   # freezes what the step does not train (FROZEN)
+        H, W = cfg.INPUT.SIZE_TRAIN
+        u8e = torch.randint(0, 256, (B_eval, 3, 3, H, W), dtype=torch.uint8, device="cuda",
+                            generator=gen)
+        cams_e = torch.randint(0, 4, (B_eval,), device="cuda", generator=gen)
+        imgs_e = normalize_images(u8e, cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD)
+        u8 = torch.randint(0, 256, (B, 3, 3, H, W), dtype=torch.uint8, device="cuda",
+                           generator=gen)
+        pids = torch.randperm(C, device="cuda", generator=gen)[:B // K].repeat_interleave(K)
+        cams = torch.randint(0, 4, (B,), device="cuda", generator=gen)
+        imgs = normalize_images(u8, cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD)
+        paths = Paths(torch, model, spec, cfg, imgs, pids, cams, streams)
+        state0 = paths.state0
+        row = {"tokens_per_block": tokens, "streams": streams, "batch_eval": B_eval,
+               "batch_train": B}
+
+        def features(dtype, use_flash):
+            model.spec = dataclasses.replace(spec, compute_dtype=dtype, use_flash=use_flash)
+            before = attention_fwd_cuda.launches
+            with torch.inference_mode():
+                patches, cls, _ = sm._encode(model, imgs_e, cams_e)
+                feats = sm.forward_eval(model, imgs_e, cams_e)
+            torch.cuda.synchronize()
+            launched = attention_fwd_cuda.launches - before
+            if launched != (2 * streams * spec.layers if use_flash else 0):
+                raise SystemExit(f"{name} eval {dtype} use_flash={use_flash}: {launched} "
+                                 f"kernel launches")
+            return patches, cls, feats
+
+        # eval, fp32: where the scale is applied and summation order only
+        _, _, f_k = features("float32", True)
+        _, _, f_p = features("float32", False)
+        row["eval_fp32_feat_max_abs_err"] = (f_k - f_p).abs().max().item()
+        if not torch.allclose(f_k, f_p, atol=1e-3, rtol=1e-3):
+            raise SystemExit(f"{name}: fp32 features, kernel vs plain path max abs err "
+                             f"{row['eval_fp32_feat_max_abs_err']} (atol 1e-3 + rtol 1e-3)")
+        del f_k, f_p
+        # eval, bf16: the tower's outputs by cosine. An MoE router turns on
+        # single bf16 ulps (a flipped argmax moves a token to another
+        # expert, or past a full one), so there the cosines are reported,
+        # not held: fp32 above holds the MoE tower's kernel path
+        p_k, c_k, f_k = features("bfloat16", True)
+        p_p, c_p, _ = features("bfloat16", False)
+        cos = torch.nn.functional.cosine_similarity
+        cls_cos = cos(c_k.flatten(0, 1), c_p.flatten(0, 1), dim=-1)
+        patch_cos = cos(p_k.flatten(0, 2), p_p.flatten(0, 2), dim=-1)
+        row.update(eval_bf16_cls_cos_min=cls_cos.min().item(),
+                   eval_bf16_patch_cos_min=patch_cos.min().item(),
+                   eval_bf16_patch_cos_mean=patch_cos.mean().item(),
+                   eval_bf16_cos_held=not spec.moe_experts)
+        if not (bool(torch.isfinite(f_k).all())
+                and tuple(f_k.shape) == (B_eval, spec.eval_feat_dim)
+                and (spec.moe_experts or min(row["eval_bf16_cls_cos_min"],
+                                             row["eval_bf16_patch_cos_min"]) > 0.99)):
+            raise SystemExit(f"{name}: bf16 eval, kernel vs plain path: {row}")
+        del p_k, c_k, f_k, p_p, c_p
+
+        # train, fp32: loss rtol 1e-5, every gradient as phase 6
+        loss_k, g_k = paths.loss_and_grads("float32", True)
+        loss_p, g32 = paths.loss_and_grads("float32", False)
+        worst, zero = paths.hold_fp32(g_k, g32, name)
+        row.update(train_fp32_loss_kernel=loss_k, train_fp32_loss_plain=loss_p,
+                   train_fp32_grad_max_rel_l2=worst, n_grads=len(g32))
+        if not math.isclose(loss_k, loss_p, rel_tol=1e-5):
+            raise SystemExit(f"{name}: fp32 loss, kernel path {loss_k} vs plain {loss_p}")
+        del g_k, g32
+        # train, bf16: the backward kernel against its plain version in the
+        # step (the same forward), and both kernels through the tower
+        names = [n_ for n_, _ in paths.params if n_ not in zero]
+        loss_k, g_k = paths.loss_and_grads("bfloat16", True)
+        _, g_b = paths.loss_and_grads("bfloat16", True, plain_bwd=True)
+        bwd_cos = cosines(torch, g_k, g_b, names)
+        del g_k, g_b
+        t_k, t_p = paths.tower_grads(True), paths.tower_grads(False)
+        tower = cosines(torch, t_k, t_p, [n_ for n_ in t_p if n_ not in zero])
+        del t_k, t_p
+        lb, lt = min(bwd_cos, key=bwd_cos.get), min(tower, key=tower.get)
+        row.update(train_bf16_loss=loss_k, bwd_kernel_vs_plain_grad_cos_min=bwd_cos[lb],
+                   bwd_kernel_vs_plain_grad_cos_min_tensor=lb, tower_grad_cos_min=tower[lt],
+                   tower_grad_cos_min_tensor=lt, tower_grad_cos_held=not spec.moe_experts)
+        if not (math.isfinite(loss_k) and bwd_cos[lb] > 0.99
+                and (spec.moe_experts or tower[lt] > 0.99)):
+            raise SystemExit(f"{name}: bf16 kernels disagree with their plain versions: {row}")
+
+        # the paths as configured, driven with the counts zeroed before and
+        # read after: the eval forward, then the train step
+        model.load_state_dict(state0)
+        model.spec = spec
+
+        def evaluate():
+            with torch.inference_mode():
+                return sm.forward_eval(model, normalize_images(u8e, cfg.INPUT.PIXEL_MEAN,
+                                                               cfg.INPUT.PIXEL_STD), cams_e)
+
+        evaluate()
+        torch.cuda.synchronize()
+        attention_fwd_cuda.launches = attention_bwd_cuda.launches = 0
+        t1 = time.perf_counter()
+        for _ in range(3):
+            evaluate()
+        torch.cuda.synchronize()
+        row["eval_ms_per_batch"] = (time.perf_counter() - t1) / 3 * 1e3
+        row["eval_launches_per_forward"] = attention_fwd_cuda.launches / 3
+        driven["attention_fwd"] += attention_fwd_cuda.launches
+        optimizer = make_optimizer(model, cfg)
+        set_lr(optimizer, *schedule_coeffs(cfg, 1))
+        step = make_train_step(model, cfg, C, optimizer, device_augment=True,
+                               gen=torch.Generator(device="cuda").manual_seed(4))
+        timed = time_train_steps(torch, step, (u8, pids, cams), n=3)
+        driven["attention_fwd"] += round(timed["attention_fwd_launches_per_step"] * 3)
+        driven["attention_bwd"] += round(timed["attention_bwd_launches_per_step"] * 3)
+        row.update(train_ms_per_step=timed["ms_per_step"],
+                   train_samples_per_s=timed["samples_per_s"],
+                   train_peak_memory_gib=timed["peak_memory_gib"],
+                   train_fwd_launches_per_step=timed["attention_fwd_launches_per_step"],
+                   train_bwd_launches_per_step=timed["attention_bwd_launches_per_step"],
+                   train_losses=timed["losses"],
+                   train_device_busy_ms_per_step=device_busy_ms(torch, step, (u8, pids, cams),
+                                                                n=1),
+                   seconds=time.perf_counter() - t0)
+        n = streams * spec.layers
+        got = (row["eval_launches_per_forward"], row["train_fwd_launches_per_step"],
+               row["train_bwd_launches_per_step"])
+        log(f"[variants] {name}: {json.dumps(row)}")
+        if got != (n, 2 * n, n):
+            raise SystemExit(f"{name}: launches (eval, train fwd, train bwd) {got}, "
+                             f"want {(n, 2 * n, n)}")
+        if not all(math.isfinite(x) for x in row["train_losses"]):
+            raise SystemExit(f"{name}: non-finite train loss {row['train_losses']}")
+        out[name] = row
+        del model, optimizer, step, paths, state0, imgs, imgs_e, u8, u8e
+        torch.cuda.empty_cache()
+    report["variants"] = out
+    if min(driven.values()) == 0:
+        raise SystemExit(f"the variants left a kernel unlaunched: {driven}")
+    return driven
+
+
 def run_main_path(torch, report):
     """Phase 5: the test CLI end to end on the synthetic config."""
     from signal_tpu_torch.cli import test_main
@@ -1464,6 +1711,7 @@ def main() -> int:
     check_reranking(torch, report)
     artifact, artifact_ms, serving_launches = check_serving(torch, report)
     check_host_data(torch, report, artifact, artifact_ms)
+    variant_launches = check_variants(torch, report)
 
     def entry(kernel, source, replaces, rows, launches):
         bf16, fp32 = rows["main-bf16"], rows["main-fp32"]
@@ -1483,7 +1731,17 @@ def main() -> int:
     bwd_entry = entry("attention_bwd", "signal_tpu_torch/csrc/attention_bwd.cu",
                       "signal_tpu/ops/flash_attention.py:123", bwd,
                       train_launches["attention_bwd"])
+    fwd["launches_variants"] = variant_launches["attention_fwd"]
+    fwd.update({f"ms_len{L}": rows[f"len{L}-bf16"]["ms"] for L in LONG_LENGTHS})
+    fwd.update({f"bound_ms_len{L}": rows[f"len{L}-bf16"]["bound_ms"] for L in LONG_LENGTHS})
     bwd_entry["launches_recipe"] = recipe_launches["attention_bwd"]
+    bwd_entry["launches_variants"] = variant_launches["attention_bwd"]
+    long_rows = {n: r for n, r in bwd.items()
+                 if r["dtype"] == "bfloat16" and max(r["shape"][1:3]) > 160}
+    bwd_entry["max_abs_err_long_route"] = max(r["max_abs_err"] for r in long_rows.values())
+    for n in ("long211-bf16", "long193-bf16"):
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "tflops", "shape"):
+            bwd_entry[f"{key}_{n.removesuffix('-bf16')}"] = bwd[n][key]
     kernels = [fwd, bwd_entry]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

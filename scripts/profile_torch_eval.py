@@ -111,7 +111,7 @@ def main() -> int:
             ev[0].record()
             imgs = normalize_images(u8, mean, std)
             ev[1].record()
-            patches, cls = sm._encode(model, imgs, cams)
+            patches, cls, _ = sm._encode(model, imgs, cams)
             ev[2].record()
             sim_forward(model.SIM, patches, cls, k=spec.topk, compute_dtype=spec.cdtype)
             ev[3].record()

@@ -79,6 +79,17 @@ def build_model_for_test(cfg, num_classes: int, camera_num: int, view_num: int =
     return spec, model.to(device).eval()
 
 
+def refuse_dist_train(cfg) -> None:
+    """MODEL.DIST_TRAIN asks for a multi-process run, which the JAX package
+    sets up (`signal_tpu/cli.py:40-44,169-170`) and the port does not have
+    yet: each process would train the whole model on the whole split and
+    write the same checkpoints. Raise instead of running single-process."""
+    if cfg.MODEL.DIST_TRAIN:
+        raise NotImplementedError(
+            "MODEL.DIST_TRAIN: multi-process training and evaluation are not ported "
+            "yet (scale-out, ROADMAP Queue 1 item 6); unset it to run on one device")
+
+
 def _seed(cfg) -> None:
     random.seed(cfg.SOLVER.SEED)
     np.random.seed(cfg.SOLVER.SEED)
@@ -109,6 +120,7 @@ def train_main(argv=None, *, preempt_event=None, step_callback=None):
     from signal_tpu_torch.config import load_config
 
     cfg = load_config(args.config_file if args.config_file else None, args.opts)
+    refuse_dist_train(cfg)
     _seed(cfg)
 
     from signal_tpu_torch.data import make_dataloader
@@ -158,6 +170,7 @@ def test_main(argv=None):
     from signal_tpu_torch.config import load_config
 
     cfg = load_config(args.config_file if args.config_file else None, args.opts)
+    refuse_dist_train(cfg)
     _seed(cfg)
 
     from signal_tpu_torch.data import make_dataloader

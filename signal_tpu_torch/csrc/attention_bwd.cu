@@ -1,4 +1,4 @@
-// Fused multi-head attention backward for short sequences, sm_90a.
+// Multi-head attention backward, sm_90a.
 //
 // Replaces the TPU kernel `_attn_bwd_kernel` (signal_tpu/ops/flash_attention.py,
 // reached through `_fused_attention_bwd_impl`) and computes what it computes,
@@ -18,8 +18,8 @@
 // Heads are column blocks hd wide of the [B, L, D] layout, read by stride:
 // there is no transpose.
 //
-// bf16: `attention_bwd_mma_kernel`, one fused kernel on the tensor cores.
-// At the ViT-B shape ([3B/2 = 192, 129, 768], 12 heads of 64) a launch
+// bf16 up to 160 tokens: `attention_bwd_mma_kernel`, one fused kernel on
+// the tensor cores. At the ViT-B shape ([3B/2 = 192, 129, 768], 12 heads of 64) a launch
 // moves 266 MB and does 24.5 GFLOP unpadded, so device memory bounds it
 // (0.080 ms at 3.35 TB/s). The CUDA-core design it replaces did its dots
 // with scalar fmaf, one warp per row, and ran 7 products in two kernels
@@ -46,11 +46,44 @@
 //   4. Warp w takes key rows 16w .. 16w+15: dV = round(P)^T.G and
 //      dK = round(dS)^T.Q, both operands through ldmatrix.trans.
 // A warp holds one 16-row tile in each phase and a whole key row in
-// registers, so Lq, Lk <= 16 kMmaWarps (160): the wrapper raises beyond.
-// One block fills an SM (shared memory and registers), so its staging and
-// its math do not overlap: at the main shape the math is most of the
-// time. wgmma/TMA and a persistent grid that stages the next head during
-// this one's math are later work.
+// registers, so this route takes Lq, Lk <= 16 kMmaWarps (160); its shared
+// memory (Q, G, round(P), round(dS) resident together) would not stretch
+// far beyond either: 234 KB at L = 193, hd 64, against the 227 KB a block
+// may have. One block fills an SM (shared memory and registers), so its
+// staging and its math do not overlap: at the main shape the math is most
+// of the time. wgmma/TMA and a persistent grid that stages the next head
+// during this one's math are later work.
+//
+// bf16 past 160 tokens (MODEL.STRIDE_SIZE 12 gives L = 211, a 384x128
+// input 193): the long route, two tensor-core kernels in the shape of the
+// fp32 pair below, with the same rounding points as the fused kernel and
+// no atomics.
+//   attention_bwd_rows_mma_kernel  one block per (batch row, head, 128
+//       query rows), 8 warps of 16 rows; it stages its Q and G rows and
+//       the head's K and V. Each warp walks the keys in chunks of 32:
+//       pass 1 the row max and sum of e (rescaled online, per lane, then
+//       summed over the quad), pass 2 P and dP for delta = rowsum(dP o P),
+//       pass 3 P, dP, dS and dQ = round(dS).K for each 64-column tile of
+//       the head. It writes dQ and the row's max, 1/sum and delta (fp32)
+//       to a scratch.
+//   attention_bwd_cols_mma_kernel  one block per (batch row, head, 128
+//       key rows), 8 warps of 16 key rows; it stages its K and V rows, the
+//       head's Q and G and the rows' statistics. Each warp walks the
+//       queries in chunks of 32 and computes S^T = K.Q^T and dP^T = V.G^T
+//       (the same products over hd in the same order as the rows kernel,
+//       operands swapped), P^T from the statistics, dS^T, and accumulates
+//       dV = round(P)^T.G and dK = round(dS)^T.Q with round(P)^T and
+//       round(dS)^T straight from the registers as A fragments.
+// Both recompute the products they need instead of keeping [L, L] tiles,
+// so the shared memory holds the operands only: 128 rows of two operands
+// and the whole head of the other two, (256 + 2 round16(L)) padded(hd)
+// bf16 (plus 12 B a query row in the cols kernel): Lq, Lk <= 640 at
+// hd 64 and <= 288 at hd 128 on a 227 KB block (the wrapper raises
+// beyond). 8 warps a block keep two blocks, 16 warps, on an SM at
+// L = 211 (4 warps ran slower on the card, PERF.md). The route does 10
+// products of [L, L, hd] (S three times and dP twice in the rows kernel,
+// S, dP, dV and dK in the cols kernel) against the fused kernel's 5; a
+// simple design first, its time is in PERF.md.
 //
 // fp32: two CUDA-core kernels that need no atomics and sum in a fixed
 // order. fp32 stays off the tensor cores: there they would run TF32.
@@ -563,10 +596,306 @@ int launch_mma(const void* q, const void* k, const void* v, const void* g, void*
   return (int)cudaGetLastError();
 }
 
-int launch_bf16(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
-                void* dv, int B, int H, int Lq, int Lk, int hd, float scale,
+// ---- bf16, past 160 tokens: the rows and cols kernels ---------------------
+
+constexpr int kLongWarps = 8;               // 16-row tiles per block
+constexpr int kLongRows = 16 * kLongWarps;  // the block's own rows
+constexpr int kChunk = 4;                   // n-tiles of 8 a warp takes at once (32 keys)
+
+// Shared memory (dynamic), in this order:
+//   rows kernel  Qs, Gs [kLongRows][padded(hd)], Ks, Vs [round16(Lk)][padded(hd)]
+//   cols kernel  Ks, Vs [kLongRows][padded(hd)], Qs, Gs [round16(Lq)][padded(hd)],
+//                then the rows' max, 1/sum and delta [3][round16(Lq)] fp32
+size_t long_rows_smem(int Lk, int hd) {
+  return (2 * (size_t)kLongRows + 2 * (size_t)mma::round16(Lk)) * mma::padded(hd) *
+         sizeof(bf16);
+}
+size_t long_cols_smem(int Lq, int hd) {
+  return long_rows_smem(Lq, hd) + 3 * (size_t)mma::round16(Lq) * sizeof(float);
+}
+
+// logits of a chunk: s * scale (rounded on its own, never fused with the
+// next subtraction, so both kernels form the same values), key columns
+// >= Lk set to -inf; n-tiles at or past LKP are left as they are
+template <int NT>
+__device__ __forceinline__ void scale_mask_rn(float (&s)[NT][4], int key0, int Lk, float scale,
+                                              int lane) {
+  const int LKP = mma::round16(Lk);
+  const int tq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (key0 + j * 8 >= LKP) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = key0 + j * 8 + 2 * tq + (e & 1);
+      s[j][e] = col < Lk ? __fmul_rn(s[j][e], scale) : -CUDART_INF_F;
+    }
+  }
+}
+
+// stats: [3][B * H * Lq] fp32 = (row max of the logits, 1 / sum of e, delta)
+__global__ void __launch_bounds__(kLongWarps * 32)
+attention_bwd_rows_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, const bf16* __restrict__ g,
+                              bf16* __restrict__ dq, float* __restrict__ stats, int B, int H,
+                              int Lq, int Lk, int hd, float scale) {
+  using namespace mma;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int LKP = round16(Lk), HDP = round16(hd), so = padded(hd);
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Gs = Qs + kLongRows * so;
+  bf16* Ks = Gs + kLongRows * so;
+  bf16* Vs = Ks + LKP * so;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x - b * H;
+  const int D = H * hd;
+  const int q0 = blockIdx.y * kLongRows;
+  const size_t qoff = (size_t)b * Lq * D + (size_t)h * hd;
+  const size_t koff = (size_t)b * Lk * D + (size_t)h * hd;
+  const int nq = min(kLongRows, Lq - q0);
+  stage_async(Qs, q + qoff + (size_t)q0 * D, nq, kLongRows, hd, D);
+  stage_async(Gs, g + qoff + (size_t)q0 * D, nq, kLongRows, hd, D);
+  stage_async(Ks, k + koff, Lk, LKP, hd, D);
+  stage_async(Vs, v + koff, Lk, LKP, hd, D);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;
+  const int r0 = warp * 16;  // the warp's rows in Qs, Gs
+  if (q0 + r0 >= Lq) return;
+
+  // pass 1: the row max and the sum of e = exp(s - max), rescaled as the
+  // max grows
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float sum[2] = {0.f, 0.f};
+  for (int kc0 = 0; kc0 < LKP; kc0 += 8 * kChunk) {
+    float s[kChunk][4];
+    dot_nt(s, Qs, Ks, so, r0, kc0, LKP, HDP, lane);
+    scale_mask_rn(s, kc0, Lk, scale, lane);
+    float cm[2] = {mx[0], mx[1]};
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      if (kc0 + j * 8 >= LKP) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cm[e >> 1] = fmaxf(cm[e >> 1], s[j][e]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      cm[i] = quad_max(cm[i]);
+      sum[i] *= expf(mx[i] - cm[i]);  // exp(-inf) = 0 before the first chunk
+      mx[i] = cm[i];
+    }
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      if (kc0 + j * 8 >= LKP) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sum[e >> 1] += expf(s[j][e] - mx[e >> 1]);
+    }
+  }
+  // rows >= Lq get 1/sum = 0, hence P = 0 (a zero-filled Q row would give
+  // a uniform P)
+  const bool live[2] = {q0 + r0 + gr < Lq, q0 + r0 + gr + 8 < Lq};
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    sum[i] = quad_sum(sum[i]);
+    inv[i] = live[i] ? 1.f / sum[i] : 0.f;
+  }
+
+  // pass 2: delta = rowsum(dP o P) from the fp32 P and dP
+  float delta[2] = {0.f, 0.f};
+  for (int kc0 = 0; kc0 < LKP; kc0 += 8 * kChunk) {
+    float s[kChunk][4], dp[kChunk][4];
+    dot_nt(s, Qs, Ks, so, r0, kc0, LKP, HDP, lane);
+    dot_nt(dp, Gs, Vs, so, r0, kc0, LKP, HDP, lane);
+    scale_mask_rn(s, kc0, Lk, scale, lane);
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      if (kc0 + j * 8 >= LKP) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - mx[e >> 1]) * inv[e >> 1];
+        delta[e >> 1] = fmaf(dp[j][e], p, delta[e >> 1]);
+      }
+    }
+  }
+  delta[0] = quad_sum(delta[0]);
+  delta[1] = quad_sum(delta[1]);
+  if ((lane & 3) == 0) {
+    const size_t n_rows = (size_t)B * H * Lq;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (!live[i]) continue;
+      const size_t r = ((size_t)b * H + h) * Lq + q0 + r0 + gr + 8 * i;
+      stats[r] = mx[i];
+      stats[n_rows + r] = inv[i];
+      stats[2 * n_rows + r] = delta[i];
+    }
+  }
+
+  // pass 3: dS = P o (dP - delta) and dQ = round(dS).K, scaled after the
+  // dot, one 64-column tile of the head at a time
+  for (int c0 = 0; c0 < HDP; c0 += kColTile) {
+    float acc[kColTile / 8][4] = {};
+    for (int kc0 = 0; kc0 < LKP; kc0 += 8 * kChunk) {
+      float s[kChunk][4], dp[kChunk][4];
+      dot_nt(s, Qs, Ks, so, r0, kc0, LKP, HDP, lane);
+      dot_nt(dp, Gs, Vs, so, r0, kc0, LKP, HDP, lane);
+      scale_mask_rn(s, kc0, Lk, scale, lane);
+      uint32_t sb[kChunk][2];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(s[j][e] - mx[e >> 1]) * inv[e >> 1];
+          ds[e] = p * (dp[j][e] - delta[e >> 1]);
+        }
+        sb[j][0] = pack(ds[0], ds[1]);
+        sb[j][1] = pack(ds[2], ds[3]);
+      }
+#pragma unroll
+      for (int kp = 0; kp < kChunk / 2; ++kp) {
+        if (kc0 + kp * 16 >= LKP) continue;
+        const uint32_t a[4] = {sb[2 * kp][0], sb[2 * kp][1], sb[2 * kp + 1][0],
+                               sb[2 * kp + 1][1]};
+        dot_cols(acc, a, Ks, so, kc0 + kp * 16, c0, HDP, lane);
+      }
+    }
+    store_tile(dq + qoff + c0, D, q0 + r0, Lq, hd - c0, acc, scale, lane);
+  }
+}
+
+__global__ void __launch_bounds__(kLongWarps * 32)
+attention_bwd_cols_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, const bf16* __restrict__ g,
+                              bf16* __restrict__ dk, bf16* __restrict__ dv,
+                              const float* __restrict__ stats, int B, int H, int Lq, int Lk,
+                              int hd, float scale) {
+  using namespace mma;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int LQP = round16(Lq), HDP = round16(hd), so = padded(hd);
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + kLongRows * so;
+  bf16* Qs = Vs + kLongRows * so;
+  bf16* Gs = Qs + LQP * so;
+  float* row_max = reinterpret_cast<float*>(Gs + LQP * so);
+  float* row_inv = row_max + LQP;
+  float* row_delta = row_inv + LQP;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x - b * H;
+  const int D = H * hd;
+  const int k0 = blockIdx.y * kLongRows;
+  const size_t qoff = (size_t)b * Lq * D + (size_t)h * hd;
+  const size_t koff = (size_t)b * Lk * D + (size_t)h * hd;
+  const int nk = min(kLongRows, Lk - k0);
+  stage_async(Ks, k + koff + (size_t)k0 * D, nk, kLongRows, hd, D);
+  stage_async(Vs, v + koff + (size_t)k0 * D, nk, kLongRows, hd, D);
+  stage_async(Qs, q + qoff, Lq, LQP, hd, D);
+  stage_async(Gs, g + qoff, Lq, LQP, hd, D);
+  {
+    // the rows' statistics; query rows >= Lq get 1/sum = 0, hence P = 0
+    const size_t n_rows = (size_t)B * H * Lq;
+    const float* rs = stats + ((size_t)b * H + h) * Lq;
+    for (int i = threadIdx.x; i < LQP; i += blockDim.x) {
+      const bool ok = i < Lq;
+      row_max[i] = ok ? rs[i] : 0.f;
+      row_inv[i] = ok ? rs[n_rows + i] : 0.f;
+      row_delta[i] = ok ? rs[2 * n_rows + i] : 0.f;
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;
+  const int tq = lane & 3;
+  const int r0 = warp * 16;  // the warp's key rows in Ks, Vs
+  if (k0 + r0 >= Lk) return;
+  const bool live[2] = {k0 + r0 + gr < Lk, k0 + r0 + gr + 8 < Lk};
+
+  for (int c0 = 0; c0 < HDP; c0 += kColTile) {
+    float av[kColTile / 8][4] = {}, ak[kColTile / 8][4] = {};
+    for (int qc0 = 0; qc0 < LQP; qc0 += 8 * kChunk) {
+      // S^T and dP^T of the warp's keys and the chunk's queries
+      float s[kChunk][4], dp[kChunk][4];
+      dot_nt(s, Ks, Qs, so, r0, qc0, LQP, HDP, lane);
+      dot_nt(dp, Vs, Gs, so, r0, qc0, LQP, HDP, lane);
+      uint32_t pb[kChunk][2], sb[kChunk][2];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        pb[j][0] = pb[j][1] = sb[j][0] = sb[j][1] = 0u;
+        if (qc0 + j * 8 >= LQP) continue;
+        const int col = qc0 + j * 8 + 2 * tq;
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = col + (e & 1);
+          p[e] = live[e >> 1] ? expf(__fmul_rn(s[j][e], scale) - row_max[c]) * row_inv[c]
+                              : 0.f;
+          ds[e] = p[e] * (dp[j][e] - row_delta[c]);
+        }
+        pb[j][0] = pack(p[0], p[1]);
+        pb[j][1] = pack(p[2], p[3]);
+        sb[j][0] = pack(ds[0], ds[1]);
+        sb[j][1] = pack(ds[2], ds[3]);
+      }
+#pragma unroll
+      for (int kp = 0; kp < kChunk / 2; ++kp) {
+        if (qc0 + kp * 16 >= LQP) continue;
+        const uint32_t ap[4] = {pb[2 * kp][0], pb[2 * kp][1], pb[2 * kp + 1][0],
+                                pb[2 * kp + 1][1]};
+        const uint32_t as[4] = {sb[2 * kp][0], sb[2 * kp][1], sb[2 * kp + 1][0],
+                                sb[2 * kp + 1][1]};
+        dot_cols(av, ap, Gs, so, qc0 + kp * 16, c0, HDP, lane);
+        dot_cols(ak, as, Qs, so, qc0 + kp * 16, c0, HDP, lane);
+      }
+    }
+    store_tile(dv + koff + c0, D, k0 + r0, Lk, hd - c0, av, 1.f, lane);
+    store_tile(dk + koff + c0, D, k0 + r0, Lk, hd - c0, ak, scale, lane);
+  }
+}
+
+int launch_long(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
+                void* dv, float* stats, int B, int H, int Lq, int Lk, int hd, float scale,
                 cudaStream_t stream) {
-  if (Lq > kMmaMaxLen || Lk > kMmaMaxLen || hd > 128) return (int)cudaErrorInvalidValue;
+  const size_t smem_rows = long_rows_smem(Lk, hd), smem_cols = long_cols_smem(Lq, hd);
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_rows_mma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_rows);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(attention_bwd_cols_mma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_cols);
+  if (err != cudaSuccess) return (int)err;
+  const bf16* qq = static_cast<const bf16*>(q);
+  const bf16* kk = static_cast<const bf16*>(k);
+  const bf16* vv = static_cast<const bf16*>(v);
+  const bf16* gg = static_cast<const bf16*>(g);
+  const dim3 grid_rows((unsigned)(B * H), (unsigned)((Lq + kLongRows - 1) / kLongRows));
+  attention_bwd_rows_mma_kernel<<<grid_rows, kLongWarps * 32, smem_rows, stream>>>(
+      qq, kk, vv, gg, static_cast<bf16*>(dq), stats, B, H, Lq, Lk, hd, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid_cols((unsigned)(B * H), (unsigned)((Lk + kLongRows - 1) / kLongRows));
+  attention_bwd_cols_mma_kernel<<<grid_cols, kLongWarps * 32, smem_cols, stream>>>(
+      qq, kk, vv, gg, static_cast<bf16*>(dk), static_cast<bf16*>(dv), stats, B, H, Lq, Lk, hd,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+bool fused_takes(int Lq, int Lk) { return Lq <= kMmaMaxLen && Lk <= kMmaMaxLen; }
+
+int launch_bf16(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
+                void* dv, float* stats, int B, int H, int Lq, int Lk, int hd, float scale,
+                cudaStream_t stream) {
+  if (hd > 128) return (int)cudaErrorInvalidValue;
+  if (!fused_takes(Lq, Lk))
+    return launch_long(q, k, v, g, dq, dk, dv, stats, B, H, Lq, Lk, hd, scale, stream);
   if (mma::round16(Lk) <= 8 * kRowTiles)
     return launch_mma<kRowTiles>(q, k, v, g, dq, dk, dv, B, H, Lq, Lk, hd, scale, stream);
   return launch_mma<kMmaMaxLen / 8>(q, k, v, g, dq, dk, dv, B, H, Lq, Lk, hd, scale, stream);
@@ -577,14 +906,22 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* g, void
 extern "C" {
 
 // Shared memory one launch needs, in bytes (dtype 0 = fp32: the larger of
-// its two kernels; 1 = bf16).
+// its two kernels; 1 = bf16: the fused kernel, or past its lengths the
+// larger of the long route's two).
 size_t attention_bwd_smem_bytes(int dtype, int Lq, int Lk, int hd) {
-  if (dtype == 1) return mma_smem_bytes(Lq, Lk, hd);
+  if (dtype == 1) {
+    if (fused_takes(Lq, Lk)) return mma_smem_bytes(Lq, Lk, hd);
+    const size_t r = long_rows_smem(Lk, hd), c = long_cols_smem(Lq, hd);
+    return r > c ? r : c;
+  }
   return smem_bytes(Lq > Lk ? Lq : Lk, hd);
 }
 
-// Longest Lq or Lk the bf16 kernel takes.
-int attention_bwd_bf16_max_len() { return kMmaMaxLen; }
+// Whether a launch needs the fp32 statistics scratch (3 * B * H * Lq):
+// the fp32 kernels and the bf16 long route do, the fused kernel does not.
+int attention_bwd_needs_stats(int dtype, int Lq, int Lk) {
+  return dtype == 0 || !fused_takes(Lq, Lk);
+}
 
 // Largest dynamic shared memory a block may opt into on `device`.
 int attention_bwd_smem_limit(int device) {
@@ -595,13 +932,15 @@ int attention_bwd_smem_limit(int device) {
 
 // q, g, dq [B, Lq, H*hd]; k, v, dk, dv [B, Lk, H*hd]: contiguous, 16-byte
 // aligned, hd % 8 == 0, hd <= 128. stats: fp32 scratch of 3 * B * H * Lq
-// for dtype 0, unused (may be null) for dtype 1. Launches on `stream`;
-// returns the first cudaError.
+// where attention_bwd_needs_stats says so, else unused (may be null).
+// Launches on `stream`; returns the first cudaError.
 int attention_bwd(const void* q, const void* k, const void* v, const void* g, void* dq,
                   void* dk, void* dv, void* stats, int dtype, int B, int H, int Lq, int Lk,
                   int hd, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch_bf16(q, k, v, g, dq, dk, dv, B, H, Lq, Lk, hd, scale, s);
+  if (dtype == 1)
+    return launch_bf16(q, k, v, g, dq, dk, dv, static_cast<float*>(stats), B, H, Lq, Lk, hd,
+                       scale, s);
   return launch_fp32(q, k, v, g, dq, dk, dv, static_cast<float*>(stats), B, H, Lq, Lk, hd,
                      scale, s);
 }

@@ -221,7 +221,7 @@ class _ShardedValLoader:
     metadata (pids/camids/…, true valid count) rides along in
     ``batch['global']`` because the evaluator sees all-gathered GLOBAL
     features, not the local shard. The port's eval engine does not gather
-    across processes yet (ROADMAP Queue 1 item 12) and refuses such
+    across processes yet (ROADMAP Queue 1 item 6, scale-out) and refuses such
     batches."""
 
     def __init__(self, records, transform, global_bs: int, num_shards: int,

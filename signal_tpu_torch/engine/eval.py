@@ -41,7 +41,7 @@ def extract_features(model: Signal, loader, evaluator: R1mAPEvaluator, *,
         if "global" in batch:
             raise NotImplementedError(
                 "multi-process eval (sharded val loader) is not ported yet "
-                "(ROADMAP Queue 1 item 12)")
+                "(ROADMAP Queue 1 item 6, scale-out)")
         imgs = torch.from_numpy(batch["packed"]).to(device, non_blocking=True)
         camids = torch.from_numpy(batch["camids"]).to(device, non_blocking=True)
         return imgs, camids, batch

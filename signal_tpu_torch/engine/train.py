@@ -86,6 +86,7 @@ def make_train_step(model: Signal, cfg, num_classes: int, optimizer: torch.optim
         raise ValueError("device_augment needs a torch.Generator on the batch's device")
     loss_fn = make_loss(cfg, num_classes)
     gram_w, pat_w = cfg.MODEL.Gram_Loss_weight, cfg.MODEL.PAT_Loss_weight
+    moe_w = float(cfg.MODEL.MoE_Loss_weight)
     center_w, center_lr = cfg.SOLVER.CENTER_LOSS_WEIGHT, cfg.SOLVER.CENTER_LR
     mean, std = tuple(cfg.INPUT.PIXEL_MEAN), tuple(cfg.INPUT.PIXEL_STD)
     aug = dict(flip_prob=float(cfg.INPUT.PROB), re_prob=float(cfg.INPUT.RE_PROB),
@@ -105,7 +106,8 @@ def make_train_step(model: Signal, cfg, num_classes: int, optimizer: torch.optim
     def forward(imgs, pids, camids):
         with true_fp32():
             out = forward_train(model, imgs, camids)
-            loss = total_train_loss(out, pids, loss_fn, gram_weight=gram_w, pat_weight=pat_w)
+            loss = total_train_loss(out, pids, loss_fn, gram_weight=gram_w, pat_weight=pat_w,
+                                    moe_weight=moe_w)
             if use_center:
                 loss = loss + center_w * center_loss(centers, out["feats"][0], pids)
             return out, loss

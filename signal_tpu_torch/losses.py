@@ -110,9 +110,12 @@ def make_loss(cfg, num_classes: int) -> Callable:
 
 
 def total_train_loss(outputs: dict, targets: torch.Tensor, loss_fn: Callable, *,
-                     gram_weight: float, pat_weight: float) -> torch.Tensor:
+                     gram_weight: float, pat_weight: float,
+                     moe_weight: float = 0.0) -> torch.Tensor:
     """Sign-dispatch loss assembly (`engine/processor.py:176-256`): one
-    loss_fn term per (score, feat) head, + α·GAM + β·LAM."""
+    loss_fn term per (score, feat) head, + α·GAM + β·LAM (+ the MoE
+    load-balance aux weighted by MODEL.MoE_Loss_weight, a knob the
+    reference declares and never reads)."""
     loss = 0.0
     for score, feat in zip(outputs["scores"], outputs["feats"]):
         loss = loss + loss_fn(score, feat, targets)
@@ -120,4 +123,6 @@ def total_train_loss(outputs: dict, targets: torch.Tensor, loss_fn: Callable, *,
         loss = loss + gram_weight * outputs["gam"]
     if outputs.get("lam") is not None:
         loss = loss + pat_weight * outputs["lam"]
+    if outputs.get("moe_aux") is not None:
+        loss = loss + moe_weight * outputs["moe_aux"]
     return loss

@@ -4,8 +4,13 @@
 `signal_tpu/models/clip_loader.py::export_reference_signal_state_dict`: it
 takes the JAX package's ``(params, bn_state)`` with numpy leaves and
 returns tensors under the reference ``Signal`` names, which the port's
-``Signal`` module loads with ``strict=True``. ``load_reference_checkpoint``
-loads a reference-named ``.pth`` through the same keys.
+``Signal`` module loads with ``strict=True``. The tower's variants come
+across too: the adapter and prompt subtrees under the reference's names
+(``adapter_ffn``, ``adapter_prompt_*``, ``adapter_transfer``,
+``adapter_{r,n,t}``), and the two the reference has no names for under the
+port's own: MoE as ``moe.*`` (`ops/moe.py`) and the LoRA factors as
+parametrizations (`models/lora.py`). ``load_reference_checkpoint`` loads
+a reference-named ``.pth`` through the same keys.
 """
 
 from __future__ import annotations
@@ -29,15 +34,12 @@ def state_dict_from_jax(params: Dict[str, Any], bn_state: Dict[str, Any],
                         spec) -> Dict[str, torch.Tensor]:
     """JAX ``(params, bn_state)`` (numpy leaves, CLIP-tower Signal) →
     {reference ``Signal`` key: fp32 tensor}."""
+    if spec.backbone != "clip":
+        raise NotImplementedError(
+            f"backbone {spec.backbone!r}: only the CLIP ViT-B-16 tower is ported "
+            f"(ROADMAP Queue 1 item 4, the other backbones)")
     base = params["base"]
     blocks = base["blocks"]
-    unported = [name for name, present in (
-        ("MODEL.ADAPTER", "adapter" in blocks), ("MODEL.MOE_EXPERTS", "moe" in blocks),
-        ("MODEL.PROMPT", "prompt" in params), ("MODEL.FROZEN", "lora" in params)) if present]
-    if unported or spec.backbone != "clip":
-        raise NotImplementedError(
-            f"{', '.join(unported) or spec.backbone}: not ported yet "
-            f"(ROADMAP Queue 1 items 12-13)")
     a = lambda x: np.asarray(x, dtype=np.float32)  # noqa: E731
     out: Dict[str, np.ndarray] = {}
 
@@ -49,20 +51,57 @@ def state_dict_from_jax(params: Dict[str, Any], bn_state: Dict[str, Any],
         out[pre + f"{ln}.weight"] = a(base[ln]["scale"])
         out[pre + f"{ln}.bias"] = a(base[ln]["bias"])
     out[pre + "proj"] = a(base["proj"])
+    lora = params.get("lora", {}).get("blocks", {})
+    prompt = params.get("prompt")
     for i in range(a(blocks["ln_1"]["scale"]).shape[0]):
         b = pre + f"transformer.resblocks.{i}."
         for ln in ("ln_1", "ln_2"):
             out[b + f"{ln}.weight"] = a(blocks[ln]["scale"][i])
             out[b + f"{ln}.bias"] = a(blocks[ln]["bias"][i])
-        attn, mlp = blocks["attn"], blocks["mlp"]
-        out[b + "attn.in_proj_weight"] = a(attn["qkv_kernel"][i]).T
+        attn = blocks["attn"]
+        kernels = {"attn.in_proj_weight": ("attn", "qkv_kernel"),
+                   "attn.out_proj.weight": ("attn", "out_kernel")}
         out[b + "attn.in_proj_bias"] = a(attn["qkv_bias"][i])
-        out[b + "attn.out_proj.weight"] = a(attn["out_kernel"][i]).T
         out[b + "attn.out_proj.bias"] = a(attn["out_bias"][i])
-        out[b + "mlp.c_fc.weight"] = a(mlp["fc_kernel"][i]).T
-        out[b + "mlp.c_fc.bias"] = a(mlp["fc_bias"][i])
-        out[b + "mlp.c_proj.weight"] = a(mlp["proj_kernel"][i]).T
-        out[b + "mlp.c_proj.bias"] = a(mlp["proj_bias"][i])
+        if "moe" in blocks:
+            moe = blocks["moe"]
+            for name in ("router", "fc_kernel", "fc_bias", "proj_kernel", "proj_bias"):
+                out[b + f"moe.{name}"] = a(moe[name][i])
+        else:
+            kernels.update({"mlp.c_fc.weight": ("mlp", "fc_kernel"),
+                            "mlp.c_proj.weight": ("mlp", "proj_kernel")})
+            out[b + "mlp.c_fc.bias"] = a(blocks["mlp"]["fc_bias"][i])
+            out[b + "mlp.c_proj.bias"] = a(blocks["mlp"]["proj_bias"][i])
+        for key, (sub, leaf) in kernels.items():
+            w = a(blocks[sub][leaf][i]).T
+            factors = lora.get(sub, {}).get(leaf)
+            if factors is None:
+                out[b + key] = w
+                continue
+            # MODEL.FROZEN: the base weight and its factors as the LoRA
+            # parametrization holds them (`models/lora.py`)
+            module, weight = key.rsplit(".", 1)
+            lp = b + f"{module}.parametrizations.{weight}."
+            out[lp + "original"] = w
+            out[lp + "0.lora_A"] = a(factors["lora_A"][i])
+            out[lp + "0.lora_B"] = a(factors["lora_B"][i])
+            out[lp + "0.lora_scale"] = a(factors["lora_scale"])
+        if "adapter" in blocks:
+            ad = blocks["adapter"]
+            out[b + "adapter_ffn.0.weight"] = a(ad["down_kernel"][i]).T
+            out[b + "adapter_ffn.0.bias"] = a(ad["down_bias"][i])
+            out[b + "adapter_ffn.2.weight"] = a(ad["up_kernel"][i]).T
+            out[b + "adapter_ffn.2.bias"] = a(ad["up_bias"][i])
+        if prompt is not None:
+            for mod in ("rgb", "nir", "tir"):
+                out[b + f"adapter_prompt_{mod}"] = a(prompt[f"prompt_{mod}"][i])
+            for tname, ours in (("adapter_transfer", "transfer"), ("adapter_r", "adp_r"),
+                                ("adapter_n", "adp_n"), ("adapter_t", "adp_t")):
+                m = prompt[ours]
+                out[b + f"{tname}.0.weight"] = a(m["fc1_kernel"][i]).T
+                out[b + f"{tname}.0.bias"] = a(m["fc1_bias"][i])
+                out[b + f"{tname}.3.weight"] = a(m["fc2_kernel"][i]).T
+                out[b + f"{tname}.3.bias"] = a(m["fc2_bias"][i])
     if "cv_embed" in params:
         out["clip_vision_encoder.cv_embed"] = a(params["cv_embed"])[:, None, :]
 

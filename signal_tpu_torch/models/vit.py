@@ -8,8 +8,23 @@ Parameters carry the reference CLIP ``VisionTransformer``'s names
 so a reference-named state dict loads as it is. The blocks run as a plain
 Python loop. In training, ``remat`` (MODEL.REMAT) checkpoints the blocks
 under MODEL.REMAT_POLICY (:func:`vit_forward` says which tensors each
-policy keeps). The JAX tower's scan, pipeline, sequence-parallel and MoE
+policy keeps). The JAX tower's scan, pipeline and sequence-parallel
 machinery is not ported.
+
+The tower's variants live in its blocks, under the reference's names
+where it has them (`modeling/clip/model.py:183-209` in
+maxingan2412/Signal):
+
+* MODEL.ADAPTER: ``adapter_ffn`` (Linear d → d/2, QuickGELU, Linear
+  d/2 → d), the MambaPro parallel adapter on the pre-ln_2 stream;
+* MODEL.PROMPT: ``adapter_prompt_{rgb,nir,tir} [4, d]`` and the
+  ``adapter_transfer`` / ``adapter_{r,n,t}`` MLPs (Linear, QuickGELU,
+  Dropout, Linear), which ``models/vit_prompt.py`` runs;
+* MODEL.MOE_EXPERTS > 1: ``moe`` (``ops/moe.py``) in place of ``mlp``; a
+  block then returns (tokens, aux) and the tower the mean aux over its
+  layers;
+* MODEL.FROZEN: LoRA factors on the block's four kernels
+  (``models/lora.py``).
 
 bf16 rounding points follow the JAX tower exactly: the patch conv rounds
 its output to the compute dtype before the fp32 cast; the residual stream
@@ -37,9 +52,13 @@ from signal_tpu_torch.ops.attention import (
     matmul_f32,
     mha,
     quick_gelu,
+    stored_weight,
     true_fp32,
     trunc_normal_,
 )
+from signal_tpu_torch.ops.moe import MoE, moe_dispatch, moe_hidden, moe_mlp, moe_route
+
+K_PROMPT = 4     # MambaPro prompt tokens per modality and block
 
 
 class _MLP(nn.Module):
@@ -49,33 +68,98 @@ class _MLP(nn.Module):
         self.c_proj = nn.Linear(4 * width, width)
 
 
+class QuickGELU(nn.Module):
+    """x·sigmoid(1.702x); it holds a place in the reference's Sequentials
+    (the forwards call :func:`quick_gelu`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return quick_gelu(x)
+
+
+def _prompt_mlp(width: int) -> nn.Sequential:
+    """d → d/2 → QuickGELU → (Dropout) → d, as the reference's prompt MLPs
+    (their Linears are ``.0`` and ``.3``)."""
+    return nn.Sequential(nn.Linear(width, width // 2), QuickGELU(), nn.Dropout(0.0),
+                         nn.Linear(width // 2, width))
+
+
 class ResidualAttentionBlock(nn.Module):
-    def __init__(self, width: int):
+    def __init__(self, width: int, *, adapter: bool = False, prompt: bool = False,
+                 moe_experts: int = 0):
         super().__init__()
         self.ln_1 = nn.LayerNorm(width)
         self.attn = MultiheadAttentionParams(width)
         self.ln_2 = nn.LayerNorm(width)
-        self.mlp = _MLP(width)
+        if moe_experts > 1:
+            self.moe = MoE(width, 4 * width, moe_experts)
+        else:
+            self.mlp = _MLP(width)
+        self.adapter_ffn = None
+        if adapter:
+            self.adapter_ffn = nn.Sequential(nn.Linear(width, width // 2), QuickGELU(),
+                                             nn.Linear(width // 2, width))
+        if prompt:
+            for m in ("rgb", "nir", "tir"):
+                setattr(self, f"adapter_prompt_{m}",
+                        nn.Parameter(torch.zeros(K_PROMPT, width)))
+            for name in ("adapter_transfer", "adapter_r", "adapter_n", "adapter_t"):
+                setattr(self, name, _prompt_mlp(width))
+
+    @property
+    def is_moe(self) -> bool:
+        return hasattr(self, "moe")
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        """`init_vit_params`' draws for one block: the attention, the MLP
+        (trunc-normal σ 0.02, zero biases) or the MoE, the adapter
+        (`init_adapter_params`) and the prompts (`init_prompt_params`:
+        zero prompt tokens, trunc-normal MLPs)."""
+        self.attn.reset_parameters(gen)
+        if self.is_moe:
+            self.moe.reset_parameters(gen)
+        else:
+            for lin in (self.mlp.c_fc, self.mlp.c_proj):
+                trunc_normal_(stored_weight(lin, "weight"), gen)
+                lin.bias.zero_()
+        linears = []
+        if self.adapter_ffn is not None:
+            linears += [self.adapter_ffn[0], self.adapter_ffn[2]]
+        if hasattr(self, "adapter_transfer"):
+            for name in ("adapter_transfer", "adapter_r", "adapter_n", "adapter_t"):
+                mlp = getattr(self, name)
+                linears += [mlp[0], mlp[3]]
+            for m in ("rgb", "nir", "tir"):
+                getattr(self, f"adapter_prompt_{m}").zero_()
+        for lin in linears:
+            trunc_normal_(lin.weight, gen)
+            lin.bias.zero_()
+        self.ln_1.reset_parameters()
+        self.ln_2.reset_parameters()
 
 
 class _Transformer(nn.Module):
-    def __init__(self, width: int, layers: int):
+    def __init__(self, width: int, layers: int, **variants):
         super().__init__()
-        self.resblocks = nn.ModuleList(ResidualAttentionBlock(width) for _ in range(layers))
+        self.resblocks = nn.ModuleList(ResidualAttentionBlock(width, **variants)
+                                       for _ in range(layers))
 
 
 class VisionTransformer(nn.Module):
-    """Parameters of the CLIP tower; the forward is :func:`vit_forward`."""
+    """Parameters of the CLIP tower; the forward is :func:`vit_forward`
+    (with MODEL.PROMPT, ``models/vit_prompt.vit_forward_prompt``)."""
 
     def __init__(self, *, h_resolution: int, w_resolution: int, patch_size: int = 16,
-                 width: int = 768, layers: int = 12, output_dim: int = 512):
+                 width: int = 768, layers: int = 12, output_dim: int = 512,
+                 adapter: bool = False, prompt: bool = False, moe_experts: int = 0):
         super().__init__()
         self.conv1 = nn.Conv2d(3, width, patch_size, stride=patch_size, bias=False)
         self.class_embedding = nn.Parameter(torch.empty(width))
         self.positional_embedding = nn.Parameter(
             torch.empty(h_resolution * w_resolution + 1, width))
         self.ln_pre = nn.LayerNorm(width)
-        self.transformer = _Transformer(width, layers)
+        self.transformer = _Transformer(width, layers, adapter=adapter, prompt=prompt,
+                                        moe_experts=moe_experts)
         self.ln_post = nn.LayerNorm(width)
         self.proj = nn.Parameter(torch.empty(width, output_dim))
 
@@ -90,14 +174,9 @@ class VisionTransformer(nn.Module):
         self.positional_embedding.normal_(0.0, scale, generator=gen)
         self.proj.normal_(0.0, scale, generator=gen)
         for blk in self.transformer.resblocks:
-            blk.attn.reset_parameters(gen)
-            trunc_normal_(blk.mlp.c_fc.weight, gen)
-            trunc_normal_(blk.mlp.c_proj.weight, gen)
-            blk.mlp.c_fc.bias.zero_()
-            blk.mlp.c_proj.bias.zero_()
-        for ln in (self.ln_pre, self.ln_post,
-                   *(m for blk in self.transformer.resblocks for m in (blk.ln_1, blk.ln_2))):
-            ln.reset_parameters()
+            blk.reset_parameters(gen)
+        self.ln_pre.reset_parameters()
+        self.ln_post.reset_parameters()
 
 
 def _attn_branch(blk: ResidualAttentionBlock, x: torch.Tensor, *, num_heads: int,
@@ -114,25 +193,68 @@ def _mlp_hidden(blk: ResidualAttentionBlock, x: torch.Tensor, compute_dtype) -> 
                              out_dtype=compute_dtype))
 
 
+def _adapter(blk: ResidualAttentionBlock, x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """MODEL.ADAPTER's branch on the pre-ln_2 stream, fp32: d → d/2 →
+    QuickGELU → d (`signal_tpu/models/vit.py:142-151`)."""
+    down, up = blk.adapter_ffn[0], blk.adapter_ffn[2]
+    a = quick_gelu(linear(down.weight, down.bias, x, compute_dtype))
+    return linear(up.weight, up.bias, a, compute_dtype)
+
+
 def _mlp_out(blk: ResidualAttentionBlock, x: torch.Tensor, hidden: torch.Tensor,
-             compute_dtype) -> torch.Tensor:
-    """x + proj(hidden), the block's output in the residual stream's dtype."""
+             compute_dtype, adapter_out: torch.Tensor | None = None) -> torch.Tensor:
+    """x + proj(hidden) (+ the adapter's branch), the block's output in the
+    residual stream's dtype: x + mlp(ln_2 x) + adapter(x)."""
     h = linear(blk.mlp.c_proj.weight, blk.mlp.c_proj.bias, hidden, compute_dtype)
+    if blk.adapter_ffn is not None:
+        h = h + (_adapter(blk, x, compute_dtype) if adapter_out is None else adapter_out)
     return x + h.to(x.dtype)
 
 
+def _moe_out(blk: ResidualAttentionBlock, x: torch.Tensor, *, compute_dtype, moe_topk: int,
+             moe_capacity: float, expert_in=None, hidden=None):
+    """x + moe(ln_2 x) → (the block's output, aux); ``expert_in`` and
+    ``hidden`` are a remat segment's kept tensors (:func:`moe_mlp`)."""
+    y, aux = moe_mlp(blk.moe, layer_norm(blk.ln_2, x), top_k=moe_topk,
+                     capacity_factor=moe_capacity, compute_dtype=compute_dtype,
+                     expert_in=expert_in, hidden=hidden)
+    return x + y.to(x.dtype), aux
+
+
 def _block(blk: ResidualAttentionBlock, x: torch.Tensor, *, num_heads: int,
-           compute_dtype, use_flash: bool, policy: str | None = None) -> torch.Tensor:
-    """One residual block. ``policy`` 'attn' or 'attn_mlp' runs it as
-    checkpoint segments whose inputs are what the policy keeps: the block
-    input and ``attn_out`` (and ``mlp_hidden``); None runs it plainly."""
+           compute_dtype, use_flash: bool, policy: str | None = None,
+           moe_topk: int = 1, moe_capacity: float = 1.25):
+    """One residual block → its output, or (output, aux) for an MoE block.
+    ``policy`` 'attn' or 'attn_mlp' runs it as checkpoint segments whose
+    inputs are what the policy keeps: the block input and ``attn_out`` (and
+    ``mlp_hidden``; on an MoE block ``moe_dispatch``, and ``moe_hidden``
+    under 'attn_mlp'); None runs it plainly."""
     attn = functools.partial(_attn_branch, blk, num_heads=num_heads,
                              compute_dtype=compute_dtype, use_flash=use_flash)
+    moe = dict(compute_dtype=compute_dtype, moe_topk=moe_topk, moe_capacity=moe_capacity)
     if policy is None:
         x = x + attn(x)
+        if blk.is_moe:
+            return _moe_out(blk, x, **moe)
         return _mlp_out(blk, x, _mlp_hidden(blk, x, compute_dtype), compute_dtype)
     ckpt = functools.partial(torch.utils.checkpoint.checkpoint, use_reentrant=False)
     attn_out = ckpt(attn, x)
+    if blk.is_moe:
+        # the routing is cheap and recomputed in each segment that needs
+        # it; the dispatched slots (and under 'attn_mlp' the expert hidden)
+        # are kept
+        def dispatch(x, attn_out):
+            h = layer_norm(blk.ln_2, x + attn_out)
+            combine, _ = moe_route(blk.moe, h, top_k=moe_topk, capacity_factor=moe_capacity)
+            return moe_dispatch(combine, h, compute_dtype)
+
+        expert_in = ckpt(dispatch, x, attn_out)
+        if policy == "attn":
+            return ckpt(lambda x, a, e: _moe_out(blk, x + a, expert_in=e, **moe),
+                        x, attn_out, expert_in)
+        hidden = ckpt(lambda e: moe_hidden(blk.moe, e, compute_dtype), expert_in)
+        return ckpt(lambda x, a, h: _moe_out(blk, x + a, hidden=h, **moe),
+                    x, attn_out, hidden)
     if policy == "attn":
         def tail(x, attn_out):
             x = x + attn_out
@@ -140,10 +262,14 @@ def _block(blk: ResidualAttentionBlock, x: torch.Tensor, *, num_heads: int,
 
         return ckpt(tail, x, attn_out)
     # attn_mlp: the residual sum is recomputed outside the hidden's segment
-    # (the same bf16 add, so the same values); proj keeps its own input
+    # (the same bf16 add, so the same values); proj keeps its own input,
+    # and the adapter's branch is a segment of its own on the kept tensors
     hidden = ckpt(lambda x, attn_out: _mlp_hidden(blk, x + attn_out, compute_dtype),
                   x, attn_out)
-    return _mlp_out(blk, x + attn_out, hidden, compute_dtype)
+    adapter_out = None
+    if blk.adapter_ffn is not None:
+        adapter_out = ckpt(lambda x, a: _adapter(blk, x + a, compute_dtype), x, attn_out)
+    return _mlp_out(blk, x + attn_out, hidden, compute_dtype, adapter_out)
 
 
 REMAT_POLICIES = ("full", "dots", "attn", "attn_mlp", "half")
@@ -194,8 +320,11 @@ def embed_patches(vit: VisionTransformer, images: torch.Tensor, cv_emb=None, *,
 def vit_forward(vit: VisionTransformer, images: torch.Tensor, cv_emb=None, *,
                 num_heads: int = 12, compute_dtype=torch.bfloat16, use_flash: bool = False,
                 stride: int | None = None, remat: bool = False,
-                remat_policy: str = "full") -> Tuple[torch.Tensor, torch.Tensor]:
-    """images [B, 3, H, W] → (patch tokens [B, L, out], cls [B, out]), fp32.
+                remat_policy: str = "full", moe_topk: int = 1,
+                moe_capacity: float = 1.25) -> Tuple[torch.Tensor, ...]:
+    """images [B, 3, H, W] → (patch tokens [B, L, out], cls [B, out]), fp32;
+    an MoE tower (MODEL.MOE_EXPERTS > 1) adds the mean load-balance aux
+    over its layers: (patches, cls, moe_aux).
 
     ``cv_emb`` [B, width]: SIE camera embedding, added to the CLS token
     only. ``use_flash``: each block's attention goes through the fused
@@ -231,20 +360,29 @@ def vit_forward(vit: VisionTransformer, images: torch.Tensor, cv_emb=None, *,
     x = x.to(compute_dtype)
     checkpointed = remat and torch.is_grad_enabled()
     blocks = vit.transformer.resblocks
+    auxs = []
     for i, blk in enumerate(blocks):
         fn = functools.partial(_block, blk, num_heads=num_heads, compute_dtype=compute_dtype,
-                               use_flash=use_flash)
+                               use_flash=use_flash, moe_topk=moe_topk,
+                               moe_capacity=moe_capacity)
         if not checkpointed or (remat_policy == "half" and i >= len(blocks) // 2):
-            x = fn(x)
+            out = fn(x)
         elif remat_policy in ("full", "half"):
-            x = torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False)
+            out = torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False)
         elif remat_policy == "dots":
-            x = torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False,
-                                                  context_fn=_save_products)
+            out = torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False,
+                                                    context_fn=_save_products)
         else:
-            x = fn(x, policy=remat_policy)
+            out = fn(x, policy=remat_policy)
+        if blk.is_moe:
+            x, aux = out
+            auxs.append(aux)
+        else:
+            x = out
     x_post = layer_norm(vit.ln_post, x)
     x_proj = matmul_f32(x_post.to(compute_dtype), vit.proj.to(compute_dtype))
+    if auxs:
+        return x_proj[:, 1:], x_proj[:, 0], torch.stack(auxs).sum() / len(blocks)
     return x_proj[:, 1:], x_proj[:, 0]
 
 

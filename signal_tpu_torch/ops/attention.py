@@ -174,12 +174,24 @@ class MultiheadAttentionParams(nn.Module):
     def reset_parameters(self, gen: torch.Generator) -> None:
         """`signal_tpu/ops/attention.py::init_mha`: xavier-uniform over the
         packed in_proj, U(±1/√D) out_proj, zero biases."""
-        dim = self.in_proj_weight.shape[1]
+        in_proj = stored_weight(self, "in_proj_weight")
+        dim = in_proj.shape[1]
         bound = math.sqrt(6.0 / (dim + 3 * dim))
-        self.in_proj_weight.uniform_(-bound, bound, generator=gen)
-        self.out_proj.weight.uniform_(-1 / math.sqrt(dim), 1 / math.sqrt(dim), generator=gen)
+        in_proj.uniform_(-bound, bound, generator=gen)
+        stored_weight(self.out_proj, "weight").uniform_(-1 / math.sqrt(dim), 1 / math.sqrt(dim),
+                                                         generator=gen)
         self.in_proj_bias.zero_()
         self.out_proj.bias.zero_()
+
+
+def stored_weight(module: nn.Module, name: str) -> torch.Tensor:
+    """``module.<name>`` as stored: under a parametrization (LoRA,
+    ``models/lora.py``) the base tensor, not the merged value a read
+    returns, so that an in-place init reaches it."""
+    params = getattr(module, "parametrizations", None)
+    if params is not None and name in params:
+        return params[name].original
+    return getattr(module, name)
 
 
 def trunc_normal_(t: torch.Tensor, gen: torch.Generator, std: float = 0.02) -> torch.Tensor:

@@ -42,8 +42,8 @@ import math
 import torch
 
 # the kernels' limits: 16-byte vector loads of a head's columns (hd % 8 ==
-# 0), and hd <= 128, at which the bf16 backward's shared memory still holds
-# Lq = Lk = 160
+# 0), and hd <= 128, at which the bf16 backward's fused kernel still holds
+# Lq = Lk = 160 in shared memory (its long route takes up to 288 at hd 128)
 MAX_HEAD_DIM = 128
 
 
@@ -148,8 +148,8 @@ def _load(name: str) -> ctypes.CDLL:
     else:
         lib.attention_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
                                       ctypes.c_float, p]
-        lib.attention_bwd_bf16_max_len.argtypes = []
-        lib.attention_bwd_bf16_max_len.restype = i
+        lib.attention_bwd_needs_stats.argtypes = [i, i, i]
+        lib.attention_bwd_needs_stats.restype = i
     getattr(lib, f"{name}_smem_bytes").argtypes = [i, i, i, i]
     getattr(lib, name).restype = i
     getattr(lib, f"{name}_smem_bytes").restype = ctypes.c_size_t
@@ -222,27 +222,25 @@ def _attention_fwd_fake(q, k, v, num_heads):
 
 def attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
                        num_heads: int):
-    """Launch ``csrc/attention_bwd.cu`` on the current stream: in bf16 its
-    fused tensor-core kernel, which takes Lq, Lk ≤ 160; in fp32 its row
-    and column kernels. q, g [B, Lq, D], k/v [B, Lk, D], fp32 or bf16, on
-    the card → (dq, dk, dv) in the same shapes and dtype. Counts each call
-    in ``attention_bwd_cuda.launches``."""
+    """Launch ``csrc/attention_bwd.cu`` on the current stream. In bf16 it
+    routes by length: Lq, Lk <= 160 take its fused tensor-core kernel,
+    longer sequences its long route (a rows and a cols kernel, up to 640
+    tokens at hd 64 and 288 at hd 128, where shared memory ends; beyond
+    that it raises). In fp32 its row and column kernels. q, g [B, Lq, D],
+    k/v [B, Lk, D], fp32 or bf16, on the card → (dq, dk, dv) in the same
+    shapes and dtype. Counts each call in ``attention_bwd_cuda.launches``."""
     hd = _check("attention_bwd_cuda", num_heads, q, k, v, g)
     lib = _load("attention_bwd")
     B, Lq, D = q.shape
     Lk = k.shape[1]
     code = _DTYPE_CODE[q.dtype]
-    longest = lib.attention_bwd_bf16_max_len()
-    if q.dtype == torch.bfloat16 and max(Lq, Lk) > longest:
-        # one 16-row tile per warp and a whole key row in registers
-        raise ValueError(f"the bf16 backward kernel takes Lq, Lk <= {longest}, "
-                         f"got Lq={Lq}, Lk={Lk}")
     _guard_smem("attention_bwd", lib, lib.attention_bwd_smem_bytes(code, Lq, Lk, hd),
                 q.device, f"Lq={Lq}, Lk={Lk}, hd={hd} ({q.dtype})")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stats = None
-    if q.dtype == torch.float32:
-        # per query row: the softmax max and sum and rowsum(dP∘P), fp32
+    if lib.attention_bwd_needs_stats(code, Lq, Lk):
+        # per query row: the softmax max, its sum (bf16: 1/sum) and
+        # rowsum(dP∘P), fp32
         stats = torch.empty(3, B * num_heads * Lq, dtype=torch.float32, device=q.device)
     rc = lib.attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),

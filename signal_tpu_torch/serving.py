@@ -31,7 +31,7 @@ under ``true_fp32()``, as the eager path does where it needs full fp32.
 
 ``export_bridged``/``load_exported_bridged`` are not ported: they export a
 ``torch_bridge`` module, which has no counterpart in the port (ROADMAP
-Queue 1 item 14).
+Queue 1 item 4).
 """
 
 from __future__ import annotations

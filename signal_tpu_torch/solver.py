@@ -5,11 +5,16 @@ reference's `solver/make_optimizer.py`, `cosine_lr.py`, `scheduler.py` and
 * Per-parameter (lr, weight decay, trainable) from the reference's rules,
   applied in its order over the port's reference-named parameters:
     1. a bias → lr × BIAS_LR_FACTOR, wd = WEIGHT_DECAY_BIAS;
-    2. the CLIP backbone (``clip_vision_encoder.base.*``) → lr pinned to
-       5e-6; the SIE table ``cv_embed`` sits outside it, as in the JAX tree;
+    2. the CLIP backbone (``clip_vision_encoder.base.*``) but its adapter
+       and prompt parameters (``adapter*`` names) → lr pinned to 5e-6,
+       unless MODEL.FROZEN; the SIE table ``cv_embed`` sits outside it, as
+       in the JAX tree;
     3. MSVR310: a classifier → lr × 100, wd = WEIGHT_DECAY_BIAS;
     4. LARGE_FC_LR: a classifier → lr × 2;
-  the BNNeck biases and SIM's unused ``W_v`` do not train.
+  the BNNeck biases and SIM's unused ``W_v`` do not train; under
+  MODEL.FROZEN neither does the backbone, but its adapters and LoRA
+  factors (``lora_*``), which train at BASE_LR. The LoRA scale is a buffer
+  and never trains.
 * ``torch.optim`` Adam (L2 decay into the gradient), AdamW (decoupled) or
   SGD with momentum, with one parameter group per (lr, wd). Each group
   keeps its ``base_lr``; the schedules give (a, b) per epoch and a group's
@@ -36,7 +41,8 @@ def param_rule(name: str, cfg) -> Tuple[float, float, bool]:
     if "bias" in name:
         lr = base_lr * cfg.SOLVER.BIAS_LR_FACTOR
         wd = cfg.SOLVER.WEIGHT_DECAY_BIAS
-    if name.startswith(CLIP_BASE):
+    backbone = name.startswith(CLIP_BASE) and "adapter" not in name
+    if backbone and not cfg.MODEL.FROZEN:
         lr = 0.000005
     if cfg.DATASETS.NAMES == "MSVR310" and "classifier" in name:
         lr = base_lr * 100
@@ -46,6 +52,8 @@ def param_rule(name: str, cfg) -> Tuple[float, float, bool]:
     if "bottleneck" in name and name.endswith("bias"):
         trainable = False
     if "W_v" in name:
+        trainable = False
+    if backbone and cfg.MODEL.FROZEN and "lora" not in name:
         trainable = False
     return lr, wd, trainable
 

@@ -11,7 +11,7 @@
   FLOPs (2·MACs) of one Signal forward, or of one train step, with the
   JAX package's arithmetic for the CLIP ViT-B/16 backbone that the port's
   ``ModelSpec`` supports (the other backbones raise, ROADMAP Queue 1
-  item 13).
+  item 4).
 * :data:`PEAKS` holds the published dense peaks of the cards the port
   runs on (NVIDIA's data sheets): the one table the bounds and MFU lines
   of ``chip_smoke.py`` and the profile scripts read.
@@ -65,7 +65,7 @@ def _require_clip(spec) -> None:
     if spec.backbone != "clip":
         raise NotImplementedError(
             f"backbone {spec.backbone!r}: only the CLIP ViT-B-16 tower is ported "
-            f"(ROADMAP Queue 1 item 13)")
+            f"(ROADMAP Queue 1 item 4, the other backbones)")
 
 
 def flash_attention_flops(spec, batch_size: int, *, train: bool = False,

@@ -19,6 +19,12 @@ _EDGE_LENGTHS = [(n, n) for n in (1, 15, 16, 17, 129, 145)] + [
     (1, 145), (145, 1), (17, 129), (129, 16), (15, 17)]
 _EDGES = [(2, lq, lk, 2 * hd, 2, torch.bfloat16)
           for hd in (8, 24, 64, 128) for lq, lk in _EDGE_LENGTHS]
+# past 160 tokens the bf16 backward takes its long route: lengths across
+# its 64-row tiles, STRIDE_SIZE 12's 211 and a 384×128 input's 193, and
+# cross attention both ways
+_LONG_EDGES = [(2, lq, lk, 2 * hd, 2, torch.bfloat16) for hd in (64, 128)
+               for lq, lk in [(n, n) for n in (161, 176, 193, 211, 223, 256)]
+               + [(211, 129), (129, 211)]]
 
 
 @pytest.fixture
@@ -90,8 +96,12 @@ def test_attention_fwd_kernel_refuses_a_graph(cuda_device):
     (4, 40, 7, 512, 8, torch.bfloat16),       # cross attention, Lq > Lk
     (4, 9, 9, 384, 6, torch.bfloat16),        # odd: 6 heads of 64
     (2, 17, 33, 256, 2, torch.float32),       # hd 128, ragged lengths
-    (2, 160, 160, 256, 2, torch.bfloat16),    # the longest the bf16 kernel takes
+    (2, 160, 160, 256, 2, torch.bfloat16),    # the longest the fused bf16 kernel takes
+    (4, 211, 211, 768, 12, torch.bfloat16),   # STRIDE_SIZE 12: the long route
+    (2, 640, 640, 128, 2, torch.bfloat16),    # the long route's longest at hd 64
+    (2, 288, 288, 256, 2, torch.bfloat16),    # and at hd 128
     *_EDGES,
+    *_LONG_EDGES,
 ])
 def test_attention_bwd_kernel_matches_plain_version(cuda_device, B, Lq, Lk, D, H, dtype):
     from signal_tpu_torch.ops.flash_attention import (
@@ -130,9 +140,13 @@ def test_attention_bwd_kernel_rejects_what_it_cannot_take(cuda_device):
     kv = torch.zeros(1, 1000, 64, device=cuda_device)
     with pytest.raises(ValueError, match="shared"):
         attention_bwd_cuda(q, kv, kv, q, 1)               # Lk beyond shared memory
-    q, kv = q.bfloat16(), torch.zeros(1, 161, 64, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="160"):
-        attention_bwd_cuda(q, kv, kv, q, 1)               # Lk past the register row
+    q = q.bfloat16()
+    for Lk, hd in ((656, 64), (304, 128)):
+        # past the long route's bound (640 at hd 64, 288 at hd 128)
+        qh = torch.zeros(1, 4, hd, device=cuda_device, dtype=torch.bfloat16)
+        kv = torch.zeros(1, Lk, hd, device=cuda_device, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="shared"):
+            attention_bwd_cuda(qh, kv, kv, qh, 1)
     assert attention_bwd_cuda.launches == before
 
 
@@ -253,3 +267,52 @@ def test_accumulation_on_the_card_equals_one_step_on_half(cuda_device):
     for name, p in p1.items():
         torch.testing.assert_close(p2[name], p, rtol=1e-4, atol=1e-6, msg=name)
     torch.testing.assert_close(c2, c1, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("name,opts", [
+    ("prompt", dict(prompt=True, adapter=True)),
+    ("moe", dict(moe_experts=4, moe_topk=2)),
+    ("frozen", dict(frozen=True)),
+    ("stride12", dict(h=21, w=10, stride_size=12)),
+])
+def test_variant_train_step_goes_through_both_kernels(cuda_device, name, opts):
+    """One fp32 train step's loss and gradients of a small variant tower on
+    the card, kernel path against plain-attention path, with its launches:
+    2 forward and 1 backward per block and stream (the prompted tower runs
+    three streams; STRIDE_SIZE 12 runs 211 tokens, the backward's long route
+    in bf16 — here fp32)."""
+    import dataclasses
+
+    from signal_tpu_torch.models import signal_model as sm
+    from signal_tpu_torch.ops.attention import true_fp32
+    from signal_tpu_torch.ops.flash_attention import attention_bwd_cuda, attention_fwd_cuda
+
+    spec = sm.ModelSpec(**{**dict(num_classes=5, camera_num=3, width=128, layers=2,
+                                  num_heads=2, feat_dim=64, h=4, w=4, topk=3,
+                                  compute_dtype="float32"), **opts})
+    H = (spec.h - 1) * spec.stride_size + 16
+    W = (spec.w - 1) * spec.stride_size + 16
+    model = sm.init_signal(spec, seed=0).to(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(4, 3, 3, H, W, device=cuda_device, generator=gen)
+    cams = torch.tensor([0, 1, 2, 0], device=cuda_device)
+    params = [p for p in model.parameters() if p.requires_grad]
+    runs = []
+    for use_flash in (True, False):
+        model.spec = dataclasses.replace(spec, use_flash=use_flash)
+        fwd, bwd = attention_fwd_cuda.launches, attention_bwd_cuda.launches
+        with true_fp32():
+            out = sm.forward_train(model, x, cams)
+            loss = sum(s.logsumexp(-1).mean() for s in out["scores"]) + out["gam"] + out["lam"]
+            if out["moe_aux"] is not None:
+                loss = loss + out["moe_aux"]
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        n = (3 if spec.prompt else 1) * spec.layers
+        launched = (attention_fwd_cuda.launches - fwd, attention_bwd_cuda.launches - bwd)
+        assert launched == ((2 * n, n) if use_flash else (0, 0)), (name, launched)
+        runs.append((loss.item(), grads))
+    (loss_k, g_k), (loss_p, g_p) = runs
+    assert loss_k == pytest.approx(loss_p, rel=1e-5)
+    for a, b in zip(g_k, g_p):
+        if b is not None and b.norm() > 1e-6:
+            torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4 * b.abs().max().item())

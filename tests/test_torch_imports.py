@@ -52,7 +52,9 @@ def test_importing_the_port_loads_neither_jax_nor_signal_tpu():
         "new = set(sys.modules) - before\n"
         "bad = sorted(n for n in new if n.split('.')[0] in ('jax', 'jaxlib', 'signal_tpu'))\n"
         "assert {'signal_tpu_torch.cli', 'signal_tpu_torch.engine.eval',\n"
-        "        'signal_tpu_torch.engine.train', 'signal_tpu_torch.solver'} <= new\n"
+        "        'signal_tpu_torch.engine.train', 'signal_tpu_torch.solver',\n"
+        "        'signal_tpu_torch.models.vit_prompt', 'signal_tpu_torch.models.lora',\n"
+        "        'signal_tpu_torch.ops.moe'} <= new\n"
         "print('BAD', bad)\n")
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
