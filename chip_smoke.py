@@ -12,10 +12,12 @@ Phases (any failure exits non-zero; nothing is caught):
   3. kernels vs plain: each kernel's wrapper (attention forward and
      backward) against its plain PyTorch version on the card, at the main
      paths' shapes, at odd ones and at every tile edge of the bf16 kernels
-     (the backward's long route past 160 tokens included), with the
-     tolerance stated; kernel, plain and library times (CUDA events) and
-     the achieved TFLOP/s, also at the variants' lengths (141, 193, 211,
-     223 forward; 193 and 211 backward);
+     (the backward's long route past 160 tokens included, with its own
+     edges: a ring chunk of 32 queries, a cluster's block of 256 keys, its
+     longest 1024), with the tolerance stated; two launches of the long
+     route at [192, 211, 768] equal to the bit; kernel, plain and library
+     times (CUDA events) and the achieved TFLOP/s, also at the variants'
+     lengths (141, 193, 211, 223 forward; 193 and 211 backward);
   4. eval slice: ``forward_eval`` of the flagship RGBNT201 model (CLIP
      ViT-B/16, width 768, 12 heads, 256×128, SIE, SIM TOPK 80; random
      weights from a seed) on B=128 random packed uint8 images, kernel path
@@ -117,13 +119,15 @@ EDGE_LENGTHS = [(n, n) for n in (1, 15, 16, 17, 129, 145)] + [
     (1, 145), (145, 1), (17, 129), (129, 16), (15, 17)]
 EDGES = [(f"edge-{lq}x{lk}-hd{hd}", 2, lq, lk, 2 * hd, 2)
          for hd in (8, 24, 64, 128) for lq, lk in EDGE_LENGTHS]
-# past 160 tokens the bf16 backward takes its long route (a rows and a cols
-# kernel over chunks of 32): lengths across its 64-row tiles, the train
-# shapes of STRIDE_SIZE 12 (211) and a 384×128 input (193), and cross
-# attention both ways, at head dims 64 and 128
+# past 160 tokens the bf16 backward takes its long route (a statistics
+# kernel, then a key-parallel kernel that streams the queries in chunks of
+# 32): lengths across its 16-row tiles and chunks, the train shapes of
+# STRIDE_SIZE 12 (211) and a 384×128 input (193), one past a block of 256
+# keys (257: a cluster of two; 128 keys a block at hd 128), its longest
+# (1024), and cross attention both ways, at head dims 64 and 128
 LONG_EDGES = [(f"edge-{lq}x{lk}-hd{hd}", 2, lq, lk, 2 * hd, 2) for hd in (64, 128)
-              for lq, lk in [(n, n) for n in (161, 176, 193, 211, 223, 256)]
-              + [(211, 129), (129, 211)]]
+              for lq, lk in [(n, n) for n in (161, 176, 193, 211, 223, 225, 256, 257, 1024)]
+              + [(211, 129), (129, 211), (1024, 17), (17, 1024)]]
 # the forward at the variants' lengths: the prompted blocks' 141, and 193,
 # 211 and 223 (the second pass over keys)
 LONG_LENGTHS = (141, 193, 211, 223)
@@ -164,6 +168,7 @@ def time_train_steps(torch, step, batch, n: int = 5):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     attention_fwd_cuda.launches = attention_bwd_cuda.launches = 0
+    attention_bwd_cuda.launches_long = 0
     t0 = time.perf_counter()
     losses = [step(*batch)[0] for _ in range(n)]
     torch.cuda.synchronize()
@@ -172,6 +177,7 @@ def time_train_steps(torch, step, batch, n: int = 5):
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "attention_fwd_launches_per_step": attention_fwd_cuda.launches / n,
             "attention_bwd_launches_per_step": attention_bwd_cuda.launches / n,
+            "attention_bwd_long_launches_per_step": attention_bwd_cuda.launches_long / n,
             "losses": [x.item() for x in losses]}
 
 
@@ -343,12 +349,21 @@ def check_attention_bwd(torch, report, peaks):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
             row["tflops"] = flops / row["ms"] / 1e9
             del qh, kh, vh, o, gh
+        if name == "long211-bf16":
+            # the long route sums dQ over a head's key blocks in a fixed
+            # order: a second launch gives the same bits
+            again = attention_bwd_cuda(q, k, v, g, H)
+            torch.cuda.synchronize()
+            row["repeat_bit_identical"] = all(torch.equal(a, b) for a, b in zip(got, again))
+            del again
         rows[name] = row
         if not name.startswith("edge"):
             log(f"[kernel] attention_bwd {name}: {json.dumps(row)}")
         if not ok:
             raise SystemExit(f"attention_bwd {name} disagrees with its plain version: "
                              f"max abs err {row['max_abs_err']} ({tol_text})")
+        if row.get("repeat_bit_identical") is False:
+            raise SystemExit(f"attention_bwd {name}: two launches differ")
         del q, k, v, g, got, want, errs
     log_edges("attention_bwd", rows)
     report["attention_bwd"] = rows
@@ -1497,7 +1512,7 @@ def check_variants(torch, report):
 
     C, B_eval = 171, 128
     gen = torch.Generator(device="cuda").manual_seed(14)
-    driven = {"attention_fwd": 0, "attention_bwd": 0}
+    driven = {"attention_fwd": 0, "attention_bwd": 0, "attention_bwd_long": 0}
     out = {}
     for name, opts in VARIANTS:
         t0 = time.perf_counter()
@@ -1620,11 +1635,14 @@ def check_variants(torch, report):
         timed = time_train_steps(torch, step, (u8, pids, cams), n=3)
         driven["attention_fwd"] += round(timed["attention_fwd_launches_per_step"] * 3)
         driven["attention_bwd"] += round(timed["attention_bwd_launches_per_step"] * 3)
+        driven["attention_bwd_long"] += round(timed["attention_bwd_long_launches_per_step"] * 3)
         row.update(train_ms_per_step=timed["ms_per_step"],
                    train_samples_per_s=timed["samples_per_s"],
                    train_peak_memory_gib=timed["peak_memory_gib"],
                    train_fwd_launches_per_step=timed["attention_fwd_launches_per_step"],
                    train_bwd_launches_per_step=timed["attention_bwd_launches_per_step"],
+                   train_bwd_long_launches_per_step=timed[
+                       "attention_bwd_long_launches_per_step"],
                    train_losses=timed["losses"],
                    train_device_busy_ms_per_step=device_busy_ms(torch, step, (u8, pids, cams),
                                                                 n=1),
@@ -1636,6 +1654,10 @@ def check_variants(torch, report):
         if got != (n, 2 * n, n):
             raise SystemExit(f"{name}: launches (eval, train fwd, train bwd) {got}, "
                              f"want {(n, 2 * n, n)}")
+        long_want = n if tokens > 160 else 0   # the backward's long route past 160 tokens
+        if row["train_bwd_long_launches_per_step"] != long_want:
+            raise SystemExit(f"{name}: {row['train_bwd_long_launches_per_step']} long-route "
+                             f"launches a step, want {long_want}")
         if not all(math.isfinite(x) for x in row["train_losses"]):
             raise SystemExit(f"{name}: non-finite train loss {row['train_losses']}")
         out[name] = row
@@ -1720,7 +1742,8 @@ def main() -> int:
                 "max_abs_err_bf16": bf16["max_abs_err"], "max_abs_err_fp32": fp32["max_abs_err"],
                 "ms": bf16["ms"], "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
                 "bound_by": bf16["bound_by"], "library_ms": bf16["library_ms"],
-                "tflops": bf16["tflops"], "shape": bf16["shape"], "ms_fp32": fp32["ms"], "bound_ms_fp32": fp32["bound_ms"]}
+                "tflops": bf16["tflops"], "shape": bf16["shape"], "ms_fp32": fp32["ms"],
+                "bound_ms_fp32": fp32["bound_ms"], "library_ms_fp32": fp32["library_ms"]}
 
     fwd = entry("attention_fwd", "signal_tpu_torch/csrc/attention_fwd.cu",
                 "signal_tpu/ops/flash_attention.py:50", rows, train_launches["attention_fwd"])
@@ -1734,6 +1757,8 @@ def main() -> int:
     fwd["launches_variants"] = variant_launches["attention_fwd"]
     fwd.update({f"ms_len{L}": rows[f"len{L}-bf16"]["ms"] for L in LONG_LENGTHS})
     fwd.update({f"bound_ms_len{L}": rows[f"len{L}-bf16"]["bound_ms"] for L in LONG_LENGTHS})
+    fwd.update({f"library_ms_len{L}": rows[f"len{L}-bf16"]["library_ms"] for L in LONG_LENGTHS})
+    fwd["library_ms_train_shape"] = rows["train-bf16"]["library_ms"]
     bwd_entry["launches_recipe"] = recipe_launches["attention_bwd"]
     bwd_entry["launches_variants"] = variant_launches["attention_bwd"]
     long_rows = {n: r for n, r in bwd.items()
@@ -1742,7 +1767,25 @@ def main() -> int:
     for n in ("long211-bf16", "long193-bf16"):
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "tflops", "shape"):
             bwd_entry[f"{key}_{n.removesuffix('-bf16')}"] = bwd[n][key]
-    kernels = [fwd, bwd_entry]
+    # the long route past 160 tokens (two kernels a launch), at STRIDE_SIZE
+    # 12's shape; its launches are those of phase 14's driven paths
+    long211, long193 = bwd["long211-bf16"], bwd["long193-bf16"]
+    long_entry = {
+        "name": "attention_bwd_long_route", "route": "cuda",
+        "source": "signal_tpu_torch/csrc/attention_bwd.cu",
+        "replaces": "signal_tpu/ops/flash_attention.py:123",
+        "kernels": ["attention_bwd_stats_mma_kernel", "attention_bwd_long_mma_kernel"],
+        "launches": variant_launches["attention_bwd_long"],
+        "max_abs_err": bwd_entry["max_abs_err_long_route"],
+        **{key: long211[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "tflops", "shape")},
+        **{f"{key}_long193": long193[key] for key in ("ms", "plain_ms", "bound_ms",
+                                                      "library_ms", "tflops", "shape")},
+        "repeat_bit_identical": long211["repeat_bit_identical"],
+        "ptxas": {short: report["build"][short] for short in report["build"]
+                  if "stats_mma" in short or "long_mma" in short},
+    }
+    kernels = [fwd, bwd_entry, long_entry]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     out = REPO / "chiprun_out"

@@ -16,7 +16,9 @@ source, all started together:
 
 and times each bf16 kernel in each version at the main paths' shapes
 (forward [384, 129, 768] and [192, 129, 768], backward [192, 129, 768], 12
-heads of 64) with CUDA events, in turns (every version twice). Only the
+heads of 64), and the backward's long route (its statistics and dK/dV
+kernels together) at STRIDE_SIZE 12's [192, 211, 768] and a 384×128
+input's [192, 193, 768], with CUDA events, in turns (every version twice). Only the
 ``as_built`` outputs mean anything; the script also reports the share of
 them that differ from the plain PyTorch version (the rest are equal to the
 bit). Prints one JSON object as its last line and writes it to
@@ -38,6 +40,11 @@ REPO = Path(__file__).resolve().parent.parent
 # the text each cut replaces in the sources; the script fails if one is
 # missing, so an edited kernel cannot be profiled by a stale cut
 _STAGED = "  cp_async_wait_all();\n  __syncthreads();\n"
+# the long route's two kernels: each chunk of their rings skips its math
+# once it has landed, and the dK/dV kernel returns before its cluster's
+# last barrier (no block has arrived at it) and its stores
+_RING = "    cp_async_wait<kLongStages - 1>();\n    __syncthreads();\n"
+_LONG_TAIL = "  if (n > 1) {\n    asm volatile(\"barrier.cluster.wait"
 _CUTS = {
     "staging_only": {
         "attention_fwd.cu": [("  stage_async(Vs, v + koff, Lk, LKP, hd, D);\n" + _STAGED,
@@ -45,7 +52,9 @@ _CUTS = {
                               + "  if (Lq > 0) return;\n")],
         "attention_bwd.cu": [("  stage_async(Vs, v + koff, Lk, LKP, hd, D);\n" + _STAGED,
                               "  stage_async(Vs, v + koff, Lk, LKP, hd, D);\n" + _STAGED
-                              + "  if (Lq > 0) return;\n")],
+                              + "  if (Lq > 0) return;\n"),
+                             (_RING, _RING + "    if (Lq > 0) continue;\n"),
+                             (_LONG_TAIL, "  if (Lq > 0) return;\n" + _LONG_TAIL)],
     },
     "math_only": {
         "attention_fwd.cu": [("  stage_async(Qs, q + qoff, Lq - row0, rows, hd, D);\n", ""),
@@ -54,7 +63,21 @@ _CUTS = {
         "attention_bwd.cu": [("  stage_async(Qs, q + qoff, Lq, LQP, hd, D);\n", ""),
                              ("  stage_async(Gs, g + qoff, Lq, LQP, hd, D);\n", ""),
                              ("  stage_async(Ks, k + koff, Lk, LKP, hd, D);\n", ""),
-                             ("  stage_async(Vs, v + koff, Lk, LKP, hd, D);\n", "")],
+                             ("  stage_async(Vs, v + koff, Lk, LKP, hd, D);\n", ""),
+                             # the long route
+                             ("  stage_async(Qs, q + qoff, Lq - q0, QR, hd, D);\n", ""),
+                             ("  stage_async(Gs, g + qoff, Lq - q0, QR, hd, D);\n", ""),
+                             ("    stage_async(Kc, k + off, Lk - c * kStatKeys, kStatKeys, hd, D);\n",
+                              ""),
+                             ("    stage_async(Kc + kStatKeys * so, v + off, Lk - c * kStatKeys, "
+                              "kStatKeys, hd, D);\n", ""),
+                             ("  stage_async(Ks, k + koff + (size_t)k0 * D, nk, KR, hd, D);\n", ""),
+                             ("  stage_async(Vs, v + koff + (size_t)k0 * D, nk, KR, hd, D);\n", ""),
+                             ("    stage_async(Qc, q + off, Lq - c * kLongQ, kLongQ, hd, D);\n", ""),
+                             ("    stage_async(Qc + kLongQ * so, g + off, Lq - c * kLongQ, kLongQ, "
+                              "hd, D);\n", ""),
+                             ("      cp_async16(st + t * kLongQ + r, stat_bh + t * rows + c * kLongQ "
+                              "+ r, true);\n", "")],
     },
 }
 
@@ -106,6 +129,12 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     data = {B: [torch.randn(B, 129, 768, device="cuda", generator=gen).bfloat16()
                 for _ in range(4)] for B in (384, 192)}
+    long_lengths = (211, 193)
+    long_data = {L: [torch.randn(192, L, 768, device="cuda", generator=gen).bfloat16()
+                     for _ in range(4)] for L in long_lengths}
+    # the long route's statistics scratch: 3 B H Lq rounded up to 32, fp32
+    long_stats = {L: torch.empty(3 * 192 * 12 * ((L + 31) // 32 * 32), device="cuda")
+                  for L in long_lengths}
 
     def ms(fn) -> float:
         for _ in range(3):
@@ -133,9 +162,18 @@ def main() -> int:
                 64, 0.125, stream))
         q, k, v, g = data[192]
         grads = [torch.empty_like(q) for _ in range(3)]
-        calls["bwd [192, 129, 768]"] = (grads, lambda: bwd.attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            *(t.data_ptr() for t in grads), None, 1, 192, 12, 129, 129, 64, 0.125, stream))
+        calls["bwd [192, 129, 768]"] = (
+            grads, lambda q=q, k=k, v=v, g=g, grads=grads: bwd.attention_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                *(t.data_ptr() for t in grads), None, 1, 192, 12, 129, 129, 64, 0.125, stream))
+        for L in long_lengths:
+            q, k, v, g = long_data[L]
+            grads = [torch.empty_like(q) for _ in range(3)]
+            calls[f"bwd long [192, {L}, 768]"] = (
+                grads, lambda q=q, k=k, v=v, g=g, grads=grads, L=L: bwd.attention_bwd(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                    *(t.data_ptr() for t in grads), long_stats[L].data_ptr(), 1, 192, 12, L, L,
+                    64, 0.125, stream))
         return calls
 
     versions = {v: launchers(v) for v in libs}
@@ -155,6 +193,8 @@ def main() -> int:
             q, k, v, _ = data[int(case[5:8])]
             want = [flash_attention_reference(q, k, v, 12)]
             out = [out]
+        elif case.startswith("bwd long"):
+            want = flash_attention_bwd_reference(*long_data[int(case[15:18])], 12)
         else:
             want = flash_attention_bwd_reference(*data[192], 12)
         differ[case] = [(a != b).float().mean().item() for a, b in zip(out, want)]

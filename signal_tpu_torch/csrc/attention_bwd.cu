@@ -55,35 +55,49 @@
 // during this one's math are later work.
 //
 // bf16 past 160 tokens (MODEL.STRIDE_SIZE 12 gives L = 211, a 384x128
-// input 193): the long route, two tensor-core kernels in the shape of the
-// fp32 pair below, with the same rounding points as the fused kernel and
-// no atomics.
-//   attention_bwd_rows_mma_kernel  one block per (batch row, head, 128
-//       query rows), 8 warps of 16 rows; it stages its Q and G rows and
-//       the head's K and V. Each warp walks the keys in chunks of 32:
-//       pass 1 the row max and sum of e (rescaled online, per lane, then
-//       summed over the quad), pass 2 P and dP for delta = rowsum(dP o P),
-//       pass 3 P, dP, dS and dQ = round(dS).K for each 64-column tile of
-//       the head. It writes dQ and the row's max, 1/sum and delta (fp32)
-//       to a scratch.
-//   attention_bwd_cols_mma_kernel  one block per (batch row, head, 128
-//       key rows), 8 warps of 16 key rows; it stages its K and V rows, the
-//       head's Q and G and the rows' statistics. Each warp walks the
-//       queries in chunks of 32 and computes S^T = K.Q^T and dP^T = V.G^T
-//       (the same products over hd in the same order as the rows kernel,
-//       operands swapped), P^T from the statistics, dS^T, and accumulates
-//       dV = round(P)^T.G and dK = round(dS)^T.Q with round(P)^T and
-//       round(dS)^T straight from the registers as A fragments.
-// Both recompute the products they need instead of keeping [L, L] tiles,
-// so the shared memory holds the operands only: 128 rows of two operands
-// and the whole head of the other two, (256 + 2 round16(L)) padded(hd)
-// bf16 (plus 12 B a query row in the cols kernel): Lq, Lk <= 640 at
-// hd 64 and <= 288 at hd 128 on a 227 KB block (the wrapper raises
-// beyond). 8 warps a block keep two blocks, 16 warps, on an SM at
-// L = 211 (4 warps ran slower on the card, PERF.md). The route does 10
-// products of [L, L, hd] (S three times and dP twice in the rows kernel,
-// S, dP, dV and dK in the cols kernel) against the fused kernel's 5; a
-// simple design first, its time is in PERF.md.
+// input 193): the long route, two tensor-core kernels (mma.sync) with the
+// same rounding points as the fused kernel and no atomics. At [192, 211,
+// 768] a launch moves 436 MB (0.130 ms at 3.35 TB/s) and its 5 products
+// are 65.6 GFLOP unpadded (0.066 ms at 989 TFLOP/s): device memory bounds
+// it, and on-chip latency is what holds it above that.
+//   attention_bwd_stats_mma_kernel  the rows' statistics in one sweep over
+//       the keys: one block per (batch row, head, 128 query rows), 8 warps
+//       of 16 rows, the keys through a ring of 2 chunks of 32 (cp.async,
+//       the next in flight while this one computes). S = Q.K^T and
+//       dP = G.V^T are formed once each; the row max m, sum l = sum e and
+//       u = sum dP.e are rescaled as m grows (e = 2^(s - m), the logits
+//       times scale.log2(e)). It writes m, 1/l and delta = u/l =
+//       rowsum(dP o P) per row to a scratch, [B H][3][Lq rounded up to 32]
+//       fp32, the rows past Lq with 1/l = 0.
+//   attention_bwd_long_mma_kernel  key-parallel: a head's keys are cut into
+//       n blocks of up to 16 warps (8 at hd > 64: the dV and dK
+//       accumulators take 64 or 128 registers a thread), one cluster of n
+//       blocks per head; n = 1 up to 256 keys at hd 64. Warp w owns 16 keys,
+//       stages their K and V once, and keeps their dV and dK in registers
+//       for the whole kernel. The queries stream through a ring of 2 chunks
+//       of 32 rows of Q, G and their statistics, so shared memory no longer
+//       grows with Lq. Per chunk the warp forms S^T = K.Q^T and dP^T =
+//       V.G^T once (the statistics kernel's products over hd in the same
+//       order, operands swapped), P = 2^(s - m)/l and dS = P o (dP - delta)
+//       in fp32, feeds round(P)^T and round(dS)^T from its registers as A
+//       fragments into dV += round(P)^T.G and dK += round(dS)^T.Q, and puts
+//       round(dS)^T in shared memory. Then the block's warps form dQ =
+//       round(dS).K over its keys, 16 x 16 tiles each: a one-block cluster
+//       writes it (scaled after the dot, rounded once); a larger cluster
+//       keeps fp32 partials, and after a cluster barrier (arrived at once,
+//       waited for only a chunk later) block r sums rows r, r + n, ... of
+//       the cluster's partials in rank order through distributed shared
+//       memory. The same order every call: two calls give the same bits.
+// 7 products of [L, L, hd] (2 + 5) against the first long route's 10;
+// exp2f once per element in each kernel (the first route ran expf four
+// times); every logit is rounded on its own (__fmul_rn, never fused into
+// the next subtraction) so that both kernels form the same value. A
+// wgmma version of the S and dP products (64-row warpgroup tiles, both
+// operands in 128-byte swizzled shared memory) was slower on the card in
+// both kernels, and so was one kernel that combines each chunk's row
+// statistics across its warps (5 products, no scratch); neither is kept.
+// The route takes Lk <= 1024 (clusters of at most 8 blocks, the portable
+// size) at any hd <= 128 and any Lq; the wrapper raises beyond.
 //
 // fp32: two CUDA-core kernels that need no atomics and sum in a fixed
 // order. fp32 stays off the tensor cores: there they would run TF32.
@@ -104,6 +118,7 @@
 // warp, each on its own row, read distinct banks. The dots run in fp32 on
 // the CUDA cores, so on-chip work bounds these kernels, not memory.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
@@ -596,295 +611,413 @@ int launch_mma(const void* q, const void* k, const void* v, const void* g, void*
   return (int)cudaGetLastError();
 }
 
-// ---- bf16, past 160 tokens: the rows and cols kernels ---------------------
+// ---- bf16, past 160 tokens: the long route --------------------------------
 
-constexpr int kLongWarps = 8;               // 16-row tiles per block
-constexpr int kLongRows = 16 * kLongWarps;  // the block's own rows
-constexpr int kChunk = 4;                   // n-tiles of 8 a warp takes at once (32 keys)
+constexpr int kLongQ = 32;         // queries a chunk of the dK/dV kernel's ring
+constexpr int kLongStages = 2;     // chunks of either kernel's ring
+constexpr int kLongMaxKeys = 1024; // Lk the long route takes
+constexpr int kLongSq = kLongQ + 8;  // dsT's row stride
+constexpr int kStatWarps = 8;      // 16-row tiles a block of the statistics kernel takes
+constexpr int kStatKeys = 32;      // keys a chunk of its ring
 
-// Shared memory (dynamic), in this order:
-//   rows kernel  Qs, Gs [kLongRows][padded(hd)], Ks, Vs [round16(Lk)][padded(hd)]
-//   cols kernel  Ks, Vs [kLongRows][padded(hd)], Qs, Gs [round16(Lq)][padded(hd)],
-//                then the rows' max, 1/sum and delta [3][round16(Lq)] fp32
-size_t long_rows_smem(int Lk, int hd) {
-  return (2 * (size_t)kLongRows + 2 * (size_t)mma::round16(Lk)) * mma::padded(hd) *
+// rows of a (batch row, head) in the statistics scratch: Lq rounded up to
+// whole chunks of kLongQ, the rows past Lq with 1/sum = 0
+__host__ __device__ __forceinline__ int long_rows(int Lq) {
+  return (Lq + kLongQ - 1) / kLongQ * kLongQ;
+}
+
+// most warps a dK/dV block takes: its dV and dK accumulators take 8 HN
+// registers a thread, so 16 warps (128 registers a thread) up to hd 64, 8
+// (255) up to 128
+__host__ __device__ constexpr int long_max_warps(int HN) { return HN <= 8 ? 16 : 8; }
+
+// A head's keys are cut into n blocks of `warps` 16-key tiles, n the fewest
+// blocks of at most long_max_warps tiles; each block holds at least one key
+// (n <= 8, the portable cluster size, up to kLongMaxKeys).
+struct LongShape {
+  int n, warps;
+};
+LongShape long_shape(int Lk, int hd) {
+  const int tiles = mma::round16(Lk) / 16;
+  const int most = long_max_warps(mma::round16(hd) <= 64 ? 8 : 16);
+  const int n = (tiles + most - 1) / most;
+  return {n, (tiles + n - 1) / n};
+}
+
+// Shared memory (dynamic) of the statistics kernel:
+//   Qs, Gs  [16 kStatWarps][padded(hd)] bf16   the block's rows
+//   ring    [kLongStages][2][kStatKeys][padded(hd)] bf16   K, V chunks
+size_t stat_smem(int hd) {
+  return (2 * 16 * kStatWarps + (size_t)kLongStages * 2 * kStatKeys) * mma::padded(hd) *
          sizeof(bf16);
 }
-size_t long_cols_smem(int Lq, int hd) {
-  return long_rows_smem(Lq, hd) + 3 * (size_t)mma::round16(Lq) * sizeof(float);
+
+// Shared memory (dynamic) of a dK/dV block, in this order, KR = 16 warps:
+//   Ks, Vs  [KR][padded(hd)] bf16          the block's keys, staged once
+//   ring    [kLongStages] of Q, G [kLongQ][padded(hd)] bf16 and the rows'
+//           max, 1/sum, delta [3][kLongQ] fp32
+//   dsT     [KR][kLongSq] bf16              round(dS)^T of the chunk
+//   qpart   [2][kLongQ][round16(hd) + 4] fp32   the block's dQ partials of
+//           two chunks (read by the cluster)
+__host__ __device__ size_t long_stage_bytes(int hd) {
+  return 2 * (size_t)kLongQ * mma::padded(hd) * sizeof(bf16) + 3 * kLongQ * sizeof(float);
+}
+size_t long_smem(int Lk, int hd) {
+  const size_t KR = 16 * (size_t)long_shape(Lk, hd).warps;
+  return 2 * KR * mma::padded(hd) * sizeof(bf16) + kLongStages * long_stage_bytes(hd) +
+         KR * kLongSq * sizeof(bf16) + 2 * (size_t)kLongQ * (mma::round16(hd) + 4) * sizeof(float);
 }
 
-// logits of a chunk: s * scale (rounded on its own, never fused with the
-// next subtraction, so both kernels form the same values), key columns
-// >= Lk set to -inf; n-tiles at or past LKP are left as they are
-template <int NT>
-__device__ __forceinline__ void scale_mask_rn(float (&s)[NT][4], int key0, int Lk, float scale,
-                                              int lane) {
-  const int LKP = mma::round16(Lk);
-  const int tq = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    if (key0 + j * 8 >= LKP) continue;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = key0 + j * 8 + 2 * tq + (e & 1);
-      s[j][e] = col < Lk ? __fmul_rn(s[j][e], scale) : -CUDART_INF_F;
-    }
-  }
+// logits of a fragment in base 2: s * scale * log2(e), rounded on its own
+// (never fused into the next subtraction, so that both kernels form the
+// same value from the same product), masked to -inf where `live` is false
+__device__ __forceinline__ float logit2(float s, float scale2, bool live) {
+  return live ? __fmul_rn(s, scale2) : -CUDART_INF_F;
 }
 
-// stats: [3][B * H * Lq] fp32 = (row max of the logits, 1 / sum of e, delta)
-__global__ void __launch_bounds__(kLongWarps * 32)
-attention_bwd_rows_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                              const bf16* __restrict__ v, const bf16* __restrict__ g,
-                              bf16* __restrict__ dq, float* __restrict__ stats, int B, int H,
-                              int Lq, int Lk, int hd, float scale) {
+// stats: per (batch row, head) [3][long_rows(Lq)] fp32 = the row max of
+// the base-2 logits, 1 / sum of e, delta = rowsum(dP o P)
+__global__ void __launch_bounds__(kStatWarps * 32)
+attention_bwd_stats_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                               const bf16* __restrict__ v, const bf16* __restrict__ g,
+                               float* __restrict__ stats, int H, int Lq, int Lk, int hd,
+                               float scale) {
   using namespace mma;
+  constexpr int NK = kStatKeys / 8;  // key n-tiles of a chunk
   extern __shared__ __align__(16) unsigned char smem[];
-  const int LKP = round16(Lk), HDP = round16(hd), so = padded(hd);
+  const int HDP = round16(hd), so = padded(hd);
+  const int QR = 16 * kStatWarps;
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Gs = Qs + kLongRows * so;
-  bf16* Ks = Gs + kLongRows * so;
-  bf16* Vs = Ks + LKP * so;
+  bf16* Gs = Qs + QR * so;
+  bf16* ring = Gs + QR * so;
 
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x - b * H;
+  const int blocks = (long_rows(Lq) + QR - 1) / QR;
+  const int bh = blockIdx.x / blocks;
+  const int q0 = (blockIdx.x - bh * blocks) * QR;
+  const int b = bh / H;
+  const int h = bh - b * H;
   const int D = H * hd;
-  const int q0 = blockIdx.y * kLongRows;
-  const size_t qoff = (size_t)b * Lq * D + (size_t)h * hd;
+  const size_t qoff = (size_t)b * Lq * D + (size_t)h * hd + (size_t)q0 * D;
   const size_t koff = (size_t)b * Lk * D + (size_t)h * hd;
-  const int nq = min(kLongRows, Lq - q0);
-  stage_async(Qs, q + qoff + (size_t)q0 * D, nq, kLongRows, hd, D);
-  stage_async(Gs, g + qoff + (size_t)q0 * D, nq, kLongRows, hd, D);
-  stage_async(Ks, k + koff, Lk, LKP, hd, D);
-  stage_async(Vs, v + koff, Lk, LKP, hd, D);
-  cp_async_wait_all();
-  __syncthreads();
+  const int nchunks = (Lk + kStatKeys - 1) / kStatKeys;
+  auto stage_keys = [&](int c) {
+    bf16* Kc = ring + (c % kLongStages) * 2 * kStatKeys * so;
+    const size_t off = koff + (size_t)c * kStatKeys * D;
+    stage_async(Kc, k + off, Lk - c * kStatKeys, kStatKeys, hd, D);
+    stage_async(Kc + kStatKeys * so, v + off, Lk - c * kStatKeys, kStatKeys, hd, D);
+  };
+  stage_async(Qs, q + qoff, Lq - q0, QR, hd, D);
+  stage_async(Gs, g + qoff, Lq - q0, QR, hd, D);
+#pragma unroll
+  for (int c = 0; c < kLongStages - 1; ++c) {
+    if (c < nchunks) stage_keys(c);
+    cp_async_commit();
+  }
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int gr = lane >> 2;
-  const int r0 = warp * 16;  // the warp's rows in Qs, Gs
-  if (q0 + r0 >= Lq) return;
-
-  // pass 1: the row max and the sum of e = exp(s - max), rescaled as the
-  // max grows
-  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  float sum[2] = {0.f, 0.f};
-  for (int kc0 = 0; kc0 < LKP; kc0 += 8 * kChunk) {
-    float s[kChunk][4];
-    dot_nt(s, Qs, Ks, so, r0, kc0, LKP, HDP, lane);
-    scale_mask_rn(s, kc0, Lk, scale, lane);
+  const int tq = lane & 3;
+  const int r0 = warp * 16;
+  const float scale2 = scale * 1.4426950408889634f;
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, sum[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};
+  for (int c = 0; c < nchunks; ++c) {
+    if (c + kLongStages - 1 < nchunks) stage_keys(c + kLongStages - 1);
+    cp_async_commit();
+    cp_async_wait<kLongStages - 1>();
+    __syncthreads();
+    const bf16* Kc = ring + (c % kLongStages) * 2 * kStatKeys * so;
+    // S = Q.K^T and dP = G.V^T of the warp's rows and the chunk's keys,
+    // once each; the row max, sum e and u = sum dP.e rescaled as the max
+    // grows (per lane, summed over the quad at the end)
+    float s[NK][4], dp[NK][4];
+    dot_nt2(s, dp, Qs, Kc, Gs, Kc + kStatKeys * so, so, r0, kStatKeys, HDP, lane);
     float cm[2] = {mx[0], mx[1]};
 #pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      if (kc0 + j * 8 >= LKP) continue;
+    for (int j = 0; j < NK; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) cm[e >> 1] = fmaxf(cm[e >> 1], s[j][e]);
-    }
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = logit2(s[j][e], scale2, c * kStatKeys + j * 8 + 2 * tq + (e & 1) < Lk);
+        cm[e >> 1] = fmaxf(cm[e >> 1], s[j][e]);
+      }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       cm[i] = quad_max(cm[i]);
-      sum[i] *= expf(mx[i] - cm[i]);  // exp(-inf) = 0 before the first chunk
+      const float f = exp2f(mx[i] - cm[i]);  // 0 before the first chunk
+      sum[i] *= f;
+      u[i] *= f;
       mx[i] = cm[i];
     }
 #pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      if (kc0 + j * 8 >= LKP) continue;
+    for (int j = 0; j < NK; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sum[e >> 1] += expf(s[j][e] - mx[e >> 1]);
-    }
+      for (int e = 0; e < 4; ++e) {
+        const float x = exp2f(s[j][e] - mx[e >> 1]);
+        sum[e >> 1] += x;
+        u[e >> 1] = fmaf(dp[j][e], x, u[e >> 1]);
+      }
+    __syncthreads();  // the chunk's stage is free
   }
-  // rows >= Lq get 1/sum = 0, hence P = 0 (a zero-filled Q row would give
-  // a uniform P)
-  const bool live[2] = {q0 + r0 + gr < Lq, q0 + r0 + gr + 8 < Lq};
-  float inv[2];
+  const int rows = long_rows(Lq);
+  float* out = stats + (size_t)bh * 3 * rows;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     sum[i] = quad_sum(sum[i]);
-    inv[i] = live[i] ? 1.f / sum[i] : 0.f;
-  }
-
-  // pass 2: delta = rowsum(dP o P) from the fp32 P and dP
-  float delta[2] = {0.f, 0.f};
-  for (int kc0 = 0; kc0 < LKP; kc0 += 8 * kChunk) {
-    float s[kChunk][4], dp[kChunk][4];
-    dot_nt(s, Qs, Ks, so, r0, kc0, LKP, HDP, lane);
-    dot_nt(dp, Gs, Vs, so, r0, kc0, LKP, HDP, lane);
-    scale_mask_rn(s, kc0, Lk, scale, lane);
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      if (kc0 + j * 8 >= LKP) continue;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[j][e] - mx[e >> 1]) * inv[e >> 1];
-        delta[e >> 1] = fmaf(dp[j][e], p, delta[e >> 1]);
-      }
+    u[i] = quad_sum(u[i]);
+    const int row = q0 + r0 + gr + 8 * i;
+    // rows >= Lq get 1/sum = 0, hence P = 0 (a zero-filled Q row would give
+    // a uniform P)
+    const float inv = row < Lq ? 1.f / sum[i] : 0.f;
+    if (tq == 0 && row < rows) {
+      out[row] = mx[i];
+      out[rows + row] = inv;
+      out[2 * rows + row] = u[i] * inv;
     }
-  }
-  delta[0] = quad_sum(delta[0]);
-  delta[1] = quad_sum(delta[1]);
-  if ((lane & 3) == 0) {
-    const size_t n_rows = (size_t)B * H * Lq;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      if (!live[i]) continue;
-      const size_t r = ((size_t)b * H + h) * Lq + q0 + r0 + gr + 8 * i;
-      stats[r] = mx[i];
-      stats[n_rows + r] = inv[i];
-      stats[2 * n_rows + r] = delta[i];
-    }
-  }
-
-  // pass 3: dS = P o (dP - delta) and dQ = round(dS).K, scaled after the
-  // dot, one 64-column tile of the head at a time
-  for (int c0 = 0; c0 < HDP; c0 += kColTile) {
-    float acc[kColTile / 8][4] = {};
-    for (int kc0 = 0; kc0 < LKP; kc0 += 8 * kChunk) {
-      float s[kChunk][4], dp[kChunk][4];
-      dot_nt(s, Qs, Ks, so, r0, kc0, LKP, HDP, lane);
-      dot_nt(dp, Gs, Vs, so, r0, kc0, LKP, HDP, lane);
-      scale_mask_rn(s, kc0, Lk, scale, lane);
-      uint32_t sb[kChunk][2];
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        float ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = expf(s[j][e] - mx[e >> 1]) * inv[e >> 1];
-          ds[e] = p * (dp[j][e] - delta[e >> 1]);
-        }
-        sb[j][0] = pack(ds[0], ds[1]);
-        sb[j][1] = pack(ds[2], ds[3]);
-      }
-#pragma unroll
-      for (int kp = 0; kp < kChunk / 2; ++kp) {
-        if (kc0 + kp * 16 >= LKP) continue;
-        const uint32_t a[4] = {sb[2 * kp][0], sb[2 * kp][1], sb[2 * kp + 1][0],
-                               sb[2 * kp + 1][1]};
-        dot_cols(acc, a, Ks, so, kc0 + kp * 16, c0, HDP, lane);
-      }
-    }
-    store_tile(dq + qoff + c0, D, q0 + r0, Lq, hd - c0, acc, scale, lane);
   }
 }
 
-__global__ void __launch_bounds__(kLongWarps * 32)
-attention_bwd_cols_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+// HN: n-tiles of 8 of the head dim that a warp's dV and dK accumulators
+// hold (8 up to hd 64, 16 up to 128)
+template <int HN>
+__global__ void __launch_bounds__(long_max_warps(HN) * 32, 1)
+attention_bwd_long_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               const bf16* __restrict__ v, const bf16* __restrict__ g,
-                              bf16* __restrict__ dk, bf16* __restrict__ dv,
-                              const float* __restrict__ stats, int B, int H, int Lq, int Lk,
-                              int hd, float scale) {
+                              const float* __restrict__ stats, bf16* __restrict__ dq,
+                              bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Lq,
+                              int Lk, int hd, float scale) {
   using namespace mma;
+  namespace cg = cooperative_groups;
+  constexpr int NQ = kLongQ / 8;  // query n-tiles of a chunk
   extern __shared__ __align__(16) unsigned char smem[];
-  const int LQP = round16(Lq), HDP = round16(hd), so = padded(hd);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int n = (int)cluster.num_blocks();
+  const int warps = blockDim.x >> 5;
+  const int KR = 16 * warps;
+  const int HDP = round16(hd), so = padded(hd), qs = HDP + 4;
+  const int stage_bytes = (int)long_stage_bytes(hd);
   bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + kLongRows * so;
-  bf16* Qs = Vs + kLongRows * so;
-  bf16* Gs = Qs + LQP * so;
-  float* row_max = reinterpret_cast<float*>(Gs + LQP * so);
-  float* row_inv = row_max + LQP;
-  float* row_delta = row_inv + LQP;
+  bf16* Vs = Ks + KR * so;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(Vs + KR * so);
+  bf16* dsT = reinterpret_cast<bf16*>(ring + kLongStages * stage_bytes);
+  float* qpart = reinterpret_cast<float*>(dsT + KR * kLongSq);
 
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x - b * H;
+  const int bh = blockIdx.x / n;
+  const int b = bh / H;
+  const int h = bh - b * H;
   const int D = H * hd;
-  const int k0 = blockIdx.y * kLongRows;
+  const int rows = long_rows(Lq);
   const size_t qoff = (size_t)b * Lq * D + (size_t)h * hd;
   const size_t koff = (size_t)b * Lk * D + (size_t)h * hd;
-  const int nk = min(kLongRows, Lk - k0);
-  stage_async(Ks, k + koff + (size_t)k0 * D, nk, kLongRows, hd, D);
-  stage_async(Vs, v + koff + (size_t)k0 * D, nk, kLongRows, hd, D);
-  stage_async(Qs, q + qoff, Lq, LQP, hd, D);
-  stage_async(Gs, g + qoff, Lq, LQP, hd, D);
-  {
-    // the rows' statistics; query rows >= Lq get 1/sum = 0, hence P = 0
-    const size_t n_rows = (size_t)B * H * Lq;
-    const float* rs = stats + ((size_t)b * H + h) * Lq;
-    for (int i = threadIdx.x; i < LQP; i += blockDim.x) {
-      const bool ok = i < Lq;
-      row_max[i] = ok ? rs[i] : 0.f;
-      row_inv[i] = ok ? rs[n_rows + i] : 0.f;
-      row_delta[i] = ok ? rs[2 * n_rows + i] : 0.f;
+  const float* stat_bh = stats + (size_t)bh * 3 * rows;
+  const int k0 = rank * KR;
+  const int nk = min(KR, Lk - k0);
+  const int nchunks = rows / kLongQ;
+  auto stage_chunk = [&](int c) {
+    bf16* Qc = reinterpret_cast<bf16*>(ring + (c % kLongStages) * stage_bytes);
+    const size_t off = qoff + (size_t)c * kLongQ * D;
+    stage_async(Qc, q + off, Lq - c * kLongQ, kLongQ, hd, D);
+    stage_async(Qc + kLongQ * so, g + off, Lq - c * kLongQ, kLongQ, hd, D);
+    float* st = reinterpret_cast<float*>(Qc + 2 * kLongQ * so);
+    for (int i = threadIdx.x; i < 3 * kLongQ / 4; i += blockDim.x) {
+      const int t = i / (kLongQ / 4), r = (i - t * (kLongQ / 4)) * 4;
+      cp_async16(st + t * kLongQ + r, stat_bh + t * rows + c * kLongQ + r, true);
     }
+  };
+  stage_async(Ks, k + koff + (size_t)k0 * D, nk, KR, hd, D);
+  stage_async(Vs, v + koff + (size_t)k0 * D, nk, KR, hd, D);
+#pragma unroll
+  for (int c = 0; c < kLongStages - 1; ++c) {
+    if (c < nchunks) stage_chunk(c);
+    cp_async_commit();
   }
-  cp_async_wait_all();
-  __syncthreads();
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int gr = lane >> 2;
   const int tq = lane & 3;
-  const int r0 = warp * 16;  // the warp's key rows in Ks, Vs
-  if (k0 + r0 >= Lk) return;
+  const int r0 = warp * 16;  // the warp's keys in Ks, Vs
   const bool live[2] = {k0 + r0 + gr < Lk, k0 + r0 + gr + 8 < Lk};
+  const float scale2 = scale * 1.4426950408889634f;
+  float av[HN][4] = {}, ak[HN][4] = {};
 
-  for (int c0 = 0; c0 < HDP; c0 += kColTile) {
-    float av[kColTile / 8][4] = {}, ak[kColTile / 8][4] = {};
-    for (int qc0 = 0; qc0 < LQP; qc0 += 8 * kChunk) {
-      // S^T and dP^T of the warp's keys and the chunk's queries
-      float s[kChunk][4], dp[kChunk][4];
-      dot_nt(s, Ks, Qs, so, r0, qc0, LQP, HDP, lane);
-      dot_nt(dp, Vs, Gs, so, r0, qc0, LQP, HDP, lane);
-      uint32_t pb[kChunk][2], sb[kChunk][2];
+  // dQ of chunk c: block `rank` sums rows rank, rank + n, ... of the
+  // cluster's partials in rank order (the same order every call), then
+  // scales and rounds once
+  auto reduce_dq = [&](int c) {
+    const float* part = qpart + (c & 1) * kLongQ * qs;
+    const int vecs = HDP / 4;
+    const int mine = (kLongQ - rank + n - 1) / n;
+    for (int idx = threadIdx.x; idx < mine * vecs; idx += blockDim.x) {
+      const int i = rank + (idx / vecs) * n;
+      const int c4 = (idx % vecs) * 4;
+      if (c * kLongQ + i >= Lq || c4 >= hd) continue;
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int r = 0; r < n; ++r) {
+        const float4 p =
+            *reinterpret_cast<const float4*>(cluster.map_shared_rank(part, r) + i * qs + c4);
+        sum.x += p.x;
+        sum.y += p.y;
+        sum.z += p.z;
+        sum.w += p.w;
+      }
+      *reinterpret_cast<uint2*>(dq + qoff + (size_t)(c * kLongQ + i) * D + c4) =
+          make_uint2(pack(sum.x * scale, sum.y * scale), pack(sum.z * scale, sum.w * scale));
+    }
+  };
+
+  for (int c = 0; c < nchunks; ++c) {
+    // chunk c + kLongStages - 1 into the stage chunk c - 1 has left
+    if (c + kLongStages - 1 < nchunks) stage_chunk(c + kLongStages - 1);
+    cp_async_commit();
+    cp_async_wait<kLongStages - 1>();
+    __syncthreads();
+    const bf16* Qc = reinterpret_cast<const bf16*>(ring + (c % kLongStages) * stage_bytes);
+    const bf16* Gc = Qc + kLongQ * so;
+    const float* st = reinterpret_cast<const float*>(Gc + kLongQ * so);
+
+    // S^T = K.Q^T and dP^T = V.G^T of the warp's keys and the chunk's
+    // queries (the statistics kernel's products, operands swapped)
+    float s[NQ][4], dp[NQ][4];
+    dot_nt2(s, dp, Ks, Qc, Vs, Gc, so, r0, kLongQ, HDP, lane);
+
+    // P = 2^(s - m) / sum and dS = P o (dP - delta) in fp32; round(P)^T and
+    // round(dS)^T from the registers as A fragments: dV += round(P)^T.G,
+    // dK += round(dS)^T.Q; round(dS)^T to shared memory for dQ
 #pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        pb[j][0] = pb[j][1] = sb[j][0] = sb[j][1] = 0u;
-        if (qc0 + j * 8 >= LQP) continue;
-        const int col = qc0 + j * 8 + 2 * tq;
+    for (int kp = 0; kp < NQ / 2; ++kp) {
+      uint32_t ap[4], as[4];
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int j = 2 * kp + t;
+        const int col = j * 8 + 2 * tq;
+        const float2 m = *reinterpret_cast<const float2*>(st + col);
+        const float2 inv = *reinterpret_cast<const float2*>(st + kLongQ + col);
+        const float2 delta = *reinterpret_cast<const float2*>(st + 2 * kLongQ + col);
         float p[4], ds[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int c = col + (e & 1);
-          p[e] = live[e >> 1] ? expf(__fmul_rn(s[j][e], scale) - row_max[c]) * row_inv[c]
-                              : 0.f;
-          ds[e] = p[e] * (dp[j][e] - row_delta[c]);
+          const bool hi = e & 1;
+          p[e] = exp2f(logit2(s[j][e], scale2, live[e >> 1]) - (hi ? m.y : m.x)) *
+                 (hi ? inv.y : inv.x);
+          ds[e] = p[e] * (dp[j][e] - (hi ? delta.y : delta.x));
         }
-        pb[j][0] = pack(p[0], p[1]);
-        pb[j][1] = pack(p[2], p[3]);
-        sb[j][0] = pack(ds[0], ds[1]);
-        sb[j][1] = pack(ds[2], ds[3]);
+        ap[2 * t] = pack(p[0], p[1]);
+        ap[2 * t + 1] = pack(p[2], p[3]);
+        as[2 * t] = pack(ds[0], ds[1]);
+        as[2 * t + 1] = pack(ds[2], ds[3]);
+        *reinterpret_cast<uint32_t*>(dsT + (r0 + gr) * kLongSq + col) = as[2 * t];
+        *reinterpret_cast<uint32_t*>(dsT + (r0 + gr + 8) * kLongSq + col) = as[2 * t + 1];
+      }
+      dot_cols_all(av, ap, Gc, so, kp * 16, HDP, lane);
+      dot_cols_all(ak, as, Qc, so, kp * 16, HDP, lane);
+    }
+    __syncthreads();  // dsT is whole
+
+    // dQ of chunk c, round(dS).K over the block's keys, one 16 x 16 unit
+    // per warp at a time, two sums over alternate k-steps added at the end.
+    // A cluster of one block writes it (scaled, rounded once); a larger
+    // one keeps it as the block's fp32 partial, and the cluster's blocks
+    // sum the partials of chunk c - 1 first (the barrier of the last chunk,
+    // waited for only now)
+    if (n > 1 && c > 0) {
+      asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+      reduce_dq(c - 1);
+    }
+    float* part = qpart + (c & 1) * kLongQ * qs;
+    const int units = (kLongQ / 16) * (HDP / 16);
+    for (int unit = warp; unit < units; unit += warps) {
+      const int m0 = (unit % (kLongQ / 16)) * 16, n0 = (unit / (kLongQ / 16)) * 16;
+      float acc[2][4] = {}, acc2[2][4] = {};
+      int kk = 0;
+      for (; kk + 16 < KR; kk += 32) {
+        uint32_t a[4], bb[4], a2[4], b2[4];
+        ldsm_x4_t(a, a_cols(dsT, kLongSq, kk, m0, lane));
+        ldsm_x4_t(bb, b_cols(Ks, so, kk, n0, lane));
+        ldsm_x4_t(a2, a_cols(dsT, kLongSq, kk + 16, m0, lane));
+        ldsm_x4_t(b2, b_cols(Ks, so, kk + 16, n0, lane));
+        mma16816(acc[0], a, bb[0], bb[1]);
+        mma16816(acc[1], a, bb[2], bb[3]);
+        mma16816(acc2[0], a2, b2[0], b2[1]);
+        mma16816(acc2[1], a2, b2[2], b2[3]);
+      }
+      if (kk < KR) {
+        uint32_t a[4], bb[4];
+        ldsm_x4_t(a, a_cols(dsT, kLongSq, kk, m0, lane));
+        ldsm_x4_t(bb, b_cols(Ks, so, kk, n0, lane));
+        mma16816(acc[0], a, bb[0], bb[1]);
+        mma16816(acc[1], a, bb[2], bb[3]);
       }
 #pragma unroll
-      for (int kp = 0; kp < kChunk / 2; ++kp) {
-        if (qc0 + kp * 16 >= LQP) continue;
-        const uint32_t ap[4] = {pb[2 * kp][0], pb[2 * kp][1], pb[2 * kp + 1][0],
-                                pb[2 * kp + 1][1]};
-        const uint32_t as[4] = {sb[2 * kp][0], sb[2 * kp][1], sb[2 * kp + 1][0],
-                                sb[2 * kp + 1][1]};
-        dot_cols(av, ap, Gs, so, qc0 + kp * 16, c0, HDP, lane);
-        dot_cols(ak, as, Qs, so, qc0 + kp * 16, c0, HDP, lane);
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[t][e] += acc2[t][e];
+      if (n == 1) {
+        store_tile(dq + qoff + n0, D, c * kLongQ + m0, Lq, hd - n0, acc, scale, lane);
+        continue;
+      }
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        float* dst = part + (m0 + gr) * qs + n0 + t * 8 + 2 * tq;
+        *reinterpret_cast<float2*>(dst) = make_float2(acc[t][0], acc[t][1]);
+        *reinterpret_cast<float2*>(dst + 8 * qs) = make_float2(acc[t][2], acc[t][3]);
       }
     }
-    store_tile(dv + koff + c0, D, k0 + r0, Lk, hd - c0, av, 1.f, lane);
-    store_tile(dk + koff + c0, D, k0 + r0, Lk, hd - c0, ak, scale, lane);
+    // publish them; the barrier completes once every block of the cluster
+    // has arrived, and no block writes these partials again before then
+    if (n > 1) asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
   }
+  if (n > 1) {
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    reduce_dq(nchunks - 1);
+  }
+
+  // dV and dK of the block's keys
+  store_tile(dv + koff, D, k0 + r0, Lk, hd, av, 1.f, lane);
+  store_tile(dk + koff, D, k0 + r0, Lk, hd, ak, scale, lane);
+  if (n > 1) cluster.sync();  // no block leaves while the cluster may read its partials
 }
 
 int launch_long(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
                 void* dv, float* stats, int B, int H, int Lq, int Lk, int hd, float scale,
                 cudaStream_t stream) {
-  const size_t smem_rows = long_rows_smem(Lk, hd), smem_cols = long_cols_smem(Lq, hd);
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_rows_mma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_rows);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(attention_bwd_cols_mma_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_cols);
-  if (err != cudaSuccess) return (int)err;
   const bf16* qq = static_cast<const bf16*>(q);
   const bf16* kk = static_cast<const bf16*>(k);
   const bf16* vv = static_cast<const bf16*>(v);
   const bf16* gg = static_cast<const bf16*>(g);
-  const dim3 grid_rows((unsigned)(B * H), (unsigned)((Lq + kLongRows - 1) / kLongRows));
-  attention_bwd_rows_mma_kernel<<<grid_rows, kLongWarps * 32, smem_rows, stream>>>(
-      qq, kk, vv, gg, static_cast<bf16*>(dq), stats, B, H, Lq, Lk, hd, scale);
+  const size_t smem_stats = stat_smem(hd);
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_stats_mma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_stats);
+  if (err != cudaSuccess) return (int)err;
+  const int stat_blocks = (long_rows(Lq) + 16 * kStatWarps - 1) / (16 * kStatWarps);
+  attention_bwd_stats_mma_kernel<<<B * H * stat_blocks, kStatWarps * 32, smem_stats, stream>>>(
+      qq, kk, vv, gg, stats, H, Lq, Lk, hd, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid_cols((unsigned)(B * H), (unsigned)((Lk + kLongRows - 1) / kLongRows));
-  attention_bwd_cols_mma_kernel<<<grid_cols, kLongWarps * 32, smem_cols, stream>>>(
-      qq, kk, vv, gg, static_cast<bf16*>(dk), static_cast<bf16*>(dv), stats, B, H, Lq, Lk, hd,
-      scale);
+
+  const LongShape shape = long_shape(Lk, hd);
+  const size_t smem = long_smem(Lk, hd);
+  auto kernel = mma::round16(hd) <= 64 ? attention_bwd_long_mma_kernel<8>
+                                       : attention_bwd_long_mma_kernel<16>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned)(shape.n * B * H));
+  config.blockDim = dim3((unsigned)(shape.warps * 32));
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = (unsigned)shape.n;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  config.attrs = cluster;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, kernel, qq, kk, vv, gg, static_cast<const float*>(stats),
+                           static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+                           static_cast<bf16*>(dv), H, Lq, Lk, hd, scale);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -894,8 +1027,10 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* g, void
                 void* dv, float* stats, int B, int H, int Lq, int Lk, int hd, float scale,
                 cudaStream_t stream) {
   if (hd > 128) return (int)cudaErrorInvalidValue;
-  if (!fused_takes(Lq, Lk))
+  if (!fused_takes(Lq, Lk)) {
+    if (Lk > kLongMaxKeys) return (int)cudaErrorInvalidValue;
     return launch_long(q, k, v, g, dq, dk, dv, stats, B, H, Lq, Lk, hd, scale, stream);
+  }
   if (mma::round16(Lk) <= 8 * kRowTiles)
     return launch_mma<kRowTiles>(q, k, v, g, dq, dk, dv, B, H, Lq, Lk, hd, scale, stream);
   return launch_mma<kMmaMaxLen / 8>(q, k, v, g, dq, dk, dv, B, H, Lq, Lk, hd, scale, stream);
@@ -905,23 +1040,32 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* g, void
 
 extern "C" {
 
-// Shared memory one launch needs, in bytes (dtype 0 = fp32: the larger of
+// Shared memory one block needs, in bytes (dtype 0 = fp32: the larger of
 // its two kernels; 1 = bf16: the fused kernel, or past its lengths the
 // larger of the long route's two).
 size_t attention_bwd_smem_bytes(int dtype, int Lq, int Lk, int hd) {
   if (dtype == 1) {
     if (fused_takes(Lq, Lk)) return mma_smem_bytes(Lq, Lk, hd);
-    const size_t r = long_rows_smem(Lk, hd), c = long_cols_smem(Lq, hd);
-    return r > c ? r : c;
+    const size_t a = stat_smem(hd), b = long_smem(Lk, hd);
+    return a > b ? a : b;
   }
   return smem_bytes(Lq > Lk ? Lq : Lk, hd);
 }
 
-// Whether a launch needs the fp32 statistics scratch (3 * B * H * Lq):
-// the fp32 kernels and the bf16 long route do, the fused kernel does not.
-int attention_bwd_needs_stats(int dtype, int Lq, int Lk) {
-  return dtype == 0 || !fused_takes(Lq, Lk);
+// fp32 scratch one launch needs for its rows' statistics, in floats: the
+// fp32 kernels 3 B H Lq, the bf16 long route 3 B H Lq rounded up to whole
+// chunks of 32 rows, the fused kernel none.
+size_t attention_bwd_stats_floats(int dtype, int B, int H, int Lq, int Lk) {
+  if (dtype == 0) return 3 * (size_t)B * H * Lq;
+  return fused_takes(Lq, Lk) ? 0 : 3 * (size_t)B * H * long_rows(Lq);
 }
+
+// Whether a bf16 launch takes the long route, and the most keys it takes
+// there.
+int attention_bwd_long_route(int dtype, int Lq, int Lk) {
+  return dtype == 1 && !fused_takes(Lq, Lk);
+}
+int attention_bwd_long_max_keys() { return kLongMaxKeys; }
 
 // Largest dynamic shared memory a block may opt into on `device`.
 int attention_bwd_smem_limit(int device) {
@@ -931,8 +1075,9 @@ int attention_bwd_smem_limit(int device) {
 }
 
 // q, g, dq [B, Lq, H*hd]; k, v, dk, dv [B, Lk, H*hd]: contiguous, 16-byte
-// aligned, hd % 8 == 0, hd <= 128. stats: fp32 scratch of 3 * B * H * Lq
-// where attention_bwd_needs_stats says so, else unused (may be null).
+// aligned, hd % 8 == 0, hd <= 128. stats: fp32 scratch of
+// attention_bwd_stats_floats floats where that is not 0, else unused (may
+// be null).
 // Launches on `stream`; returns the first cudaError.
 int attention_bwd(const void* q, const void* k, const void* v, const void* g, void* dq,
                   void* dk, void* dv, void* stats, int dtype, int B, int H, int Lq, int Lk,

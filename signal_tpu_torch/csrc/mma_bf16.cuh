@@ -1,7 +1,8 @@
 // Warp-level tensor-core building blocks of the bf16 attention kernels
 // (attention_fwd.cu, attention_bwd.cu), sm_90a: 16-byte cp.async with zero
-// fill, ldmatrix (plain and transposed), mma.sync m16n8k16 bf16 x bf16 ->
-// fp32, and a row padding that keeps ldmatrix free of bank conflicts.
+// fill (and its groups, for a ring of stages), ldmatrix (plain and
+// transposed), mma.sync m16n8k16 bf16 x bf16 -> fp32, and a row padding
+// that keeps ldmatrix free of bank conflicts.
 //
 // Fragments of mma.sync.m16n8k16.row.col, lane = 4 gr + tq:
 //   A 16x16 (m x k), 4 regs of 2 bf16: (gr, 2tq..2tq+1), (gr+8, 2tq..),
@@ -45,6 +46,17 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) 
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// A ring of stages: close the thread's pending copies into a group, then
+// wait until at most N groups are still in flight.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Stage rows [0, LP) of a head's column block (hd wide, row stride D in
@@ -211,6 +223,22 @@ __device__ __forceinline__ void dot_cols(float (&acc)[kColTile / 8][4], const ui
     if (c0 + np * 16 >= ncols) continue;
     uint32_t b[4];
     ldsm_x4_t(b, b_cols(B, stride, k0, c0 + np * 16, lane));
+    mma16816(acc[2 * np], a, b[0], b[1]);
+    mma16816(acc[2 * np + 1], a, b[2], b[3]);
+  }
+}
+
+// dot_cols over the whole head at once: acc[0 .. NT) += A . B[k0 .. k0 +
+// 16)[0 .. 8 NT), n-tiles at or past ncols left untouched
+template <int NT>
+__device__ __forceinline__ void dot_cols_all(float (&acc)[NT][4], const uint32_t (&a)[4],
+                                             const bf16* B, int stride, int k0, int ncols,
+                                             int lane) {
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np) {
+    if (np * 16 >= ncols) continue;
+    uint32_t b[4];
+    ldsm_x4_t(b, b_cols(B, stride, k0, np * 16, lane));
     mma16816(acc[2 * np], a, b[0], b[1]);
     mma16816(acc[2 * np + 1], a, b[2], b[3]);
   }

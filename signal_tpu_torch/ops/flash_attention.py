@@ -43,7 +43,7 @@ import torch
 
 # the kernels' limits: 16-byte vector loads of a head's columns (hd % 8 ==
 # 0), and hd <= 128, at which the bf16 backward's fused kernel still holds
-# Lq = Lk = 160 in shared memory (its long route takes up to 288 at hd 128)
+# Lq = Lk = 160 in shared memory (its long route takes up to 1024 keys)
 MAX_HEAD_DIM = 128
 
 
@@ -148,8 +148,12 @@ def _load(name: str) -> ctypes.CDLL:
     else:
         lib.attention_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
                                       ctypes.c_float, p]
-        lib.attention_bwd_needs_stats.argtypes = [i, i, i]
-        lib.attention_bwd_needs_stats.restype = i
+        lib.attention_bwd_stats_floats.argtypes = [i, i, i, i, i]
+        lib.attention_bwd_stats_floats.restype = ctypes.c_size_t
+        lib.attention_bwd_long_route.argtypes = [i, i, i]
+        lib.attention_bwd_long_route.restype = i
+        lib.attention_bwd_long_max_keys.argtypes = []
+        lib.attention_bwd_long_max_keys.restype = i
     getattr(lib, f"{name}_smem_bytes").argtypes = [i, i, i, i]
     getattr(lib, name).restype = i
     getattr(lib, f"{name}_smem_bytes").restype = ctypes.c_size_t
@@ -224,24 +228,32 @@ def attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: tor
                        num_heads: int):
     """Launch ``csrc/attention_bwd.cu`` on the current stream. In bf16 it
     routes by length: Lq, Lk <= 160 take its fused tensor-core kernel,
-    longer sequences its long route (a rows and a cols kernel, up to 640
-    tokens at hd 64 and 288 at hd 128, where shared memory ends; beyond
-    that it raises). In fp32 its row and column kernels. q, g [B, Lq, D],
-    k/v [B, Lk, D], fp32 or bf16, on the card → (dq, dk, dv) in the same
-    shapes and dtype. Counts each call in ``attention_bwd_cuda.launches``."""
+    longer sequences its long route (a row-statistics kernel, then a
+    key-parallel kernel on a cluster of blocks per head; up to 1024 keys at
+    any head dim and any Lq; beyond that it raises). In fp32 its row and
+    column kernels. q, g [B, Lq, D], k/v [B, Lk, D], fp32 or bf16, on the
+    card → (dq, dk, dv) in the same shapes and dtype. Counts each call in
+    ``attention_bwd_cuda.launches``, and those of the long route also in
+    ``attention_bwd_cuda.launches_long``."""
     hd = _check("attention_bwd_cuda", num_heads, q, k, v, g)
     lib = _load("attention_bwd")
     B, Lq, D = q.shape
     Lk = k.shape[1]
     code = _DTYPE_CODE[q.dtype]
+    what = f"Lq={Lq}, Lk={Lk}, hd={hd} ({q.dtype})"
+    long_route = bool(lib.attention_bwd_long_route(code, Lq, Lk))
+    max_keys = lib.attention_bwd_long_max_keys()
+    if long_route and Lk > max_keys:
+        raise ValueError(f"{what}: the bf16 backward's long route takes at most {max_keys} keys")
     _guard_smem("attention_bwd", lib, lib.attention_bwd_smem_bytes(code, Lq, Lk, hd),
-                q.device, f"Lq={Lq}, Lk={Lk}, hd={hd} ({q.dtype})")
+                q.device, what)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stats = None
-    if lib.attention_bwd_needs_stats(code, Lq, Lk):
+    n_stats = lib.attention_bwd_stats_floats(code, B, num_heads, Lq, Lk)
+    if n_stats:
         # per query row: the softmax max, its sum (bf16: 1/sum) and
         # rowsum(dP∘P), fp32
-        stats = torch.empty(3, B * num_heads * Lq, dtype=torch.float32, device=q.device)
+        stats = torch.empty(n_stats, dtype=torch.float32, device=q.device)
     rc = lib.attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                            None if stats is None else stats.data_ptr(),
@@ -250,10 +262,12 @@ def attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: tor
     if rc != 0:
         raise RuntimeError(f"attention_bwd launch failed: cudaError {rc}")
     attention_bwd_cuda.launches += 1
+    attention_bwd_cuda.launches_long += long_route
     return dq, dk, dv
 
 
 attention_bwd_cuda.launches = 0
+attention_bwd_cuda.launches_long = 0
 
 
 def _attention_setup(ctx, inputs, output):

@@ -43,7 +43,13 @@ def _arrays(seed, *shapes):
     (1, 129, 129, 64, 1),
     (2, 9, 9, 16, 2),
     (2, 9, 9, 48, 2),
-], ids=["self", "cross", "odd", "lq1-lk17", "l129", "hd8", "hd24"])
+    # past 160 tokens, where the bf16 kernel takes its long route:
+    # STRIDE_SIZE 12's 211, and cross attention both ways
+    (1, 211, 211, 64, 1),
+    (1, 211, 129, 64, 1),
+    (1, 129, 211, 64, 1),
+], ids=["self", "cross", "odd", "lq1-lk17", "l129", "hd8", "hd24", "l211", "lq211-lk129",
+        "lq129-lk211"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bwd_plain_version_matches_jax_kernel(B, Lq, Lk, D, H, dtype):
     q, k, v, g = _arrays(B * Lq + D, (B, Lq, D), (B, Lk, D), (B, Lk, D), (B, Lq, D))

@@ -25,6 +25,13 @@ _EDGES = [(2, lq, lk, 2 * hd, 2, torch.bfloat16)
 _LONG_EDGES = [(2, lq, lk, 2 * hd, 2, torch.bfloat16) for hd in (64, 128)
                for lq, lk in [(n, n) for n in (161, 176, 193, 211, 223, 256)]
                + [(211, 129), (129, 211)]]
+# the long route's own edges: one past a ring chunk of 32 queries (193,
+# 225), one past a block's keys, where the cluster grows by a block (256
+# keys a block at hd 64: 257, 513, 769; 128 at hd 128: 385, 641, 897 too),
+# its longest (1024 keys), and a single key or query against many
+_LONG_TILE_EDGES = [(2, lq, lk, 2 * hd, 2, torch.bfloat16) for hd in (64, 128)
+                    for lq, lk in [(n, n) for n in (225, 257, 385, 513, 641, 769, 897, 1024)]
+                    + [(257, 1), (1, 257), (1024, 17), (17, 1024)]]
 
 
 @pytest.fixture
@@ -98,10 +105,11 @@ def test_attention_fwd_kernel_refuses_a_graph(cuda_device):
     (2, 17, 33, 256, 2, torch.float32),       # hd 128, ragged lengths
     (2, 160, 160, 256, 2, torch.bfloat16),    # the longest the fused bf16 kernel takes
     (4, 211, 211, 768, 12, torch.bfloat16),   # STRIDE_SIZE 12: the long route
-    (2, 640, 640, 128, 2, torch.bfloat16),    # the long route's longest at hd 64
+    (2, 640, 640, 128, 2, torch.bfloat16),    # the first long route's longest at hd 64
     (2, 288, 288, 256, 2, torch.bfloat16),    # and at hd 128
     *_EDGES,
     *_LONG_EDGES,
+    *_LONG_TILE_EDGES,
 ])
 def test_attention_bwd_kernel_matches_plain_version(cuda_device, B, Lq, Lk, D, H, dtype):
     from signal_tpu_torch.ops.flash_attention import (
@@ -140,14 +148,32 @@ def test_attention_bwd_kernel_rejects_what_it_cannot_take(cuda_device):
     kv = torch.zeros(1, 1000, 64, device=cuda_device)
     with pytest.raises(ValueError, match="shared"):
         attention_bwd_cuda(q, kv, kv, q, 1)               # Lk beyond shared memory
-    q = q.bfloat16()
-    for Lk, hd in ((656, 64), (304, 128)):
-        # past the long route's bound (640 at hd 64, 288 at hd 128)
+    for Lk, hd in ((1040, 64), (1040, 128)):
+        # past the long route's bound: 1024 keys (a cluster of 8 blocks of
+        # 128 keys) at any head dim
         qh = torch.zeros(1, 4, hd, device=cuda_device, dtype=torch.bfloat16)
         kv = torch.zeros(1, Lk, hd, device=cuda_device, dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match="shared"):
+        with pytest.raises(ValueError, match="at most 1024 keys"):
             attention_bwd_cuda(qh, kv, kv, qh, 1)
     assert attention_bwd_cuda.launches == before
+
+
+def test_attention_bwd_long_route_repeats_to_the_bit(cuda_device):
+    """The long route sums dQ over a head's key blocks in a fixed order
+    (rank order through distributed shared memory, no atomics): two
+    launches on the same inputs give the same bits."""
+    from signal_tpu_torch.ops.flash_attention import attention_bwd_cuda
+
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v, g = (torch.randn(4, 211, 768, device=cuda_device, generator=gen).bfloat16()
+                  for _ in "qkvg")
+    before = attention_bwd_cuda.launches_long
+    first = attention_bwd_cuda(q, k, v, g, 12)
+    second = attention_bwd_cuda(q, k, v, g, 12)
+    torch.cuda.synchronize()
+    assert attention_bwd_cuda.launches_long == before + 2
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 def test_bf16_kernels_run_on_the_tensor_cores_without_spills(cuda_device):
