@@ -17,7 +17,9 @@ Phases (any failure exits non-zero; nothing is caught):
      longest 1024), with the tolerance stated; two launches of the long
      route at [192, 211, 768] equal to the bit; kernel, plain and library
      times (CUDA events) and the achieved TFLOP/s, also at the variants'
-     lengths (141, 193, 211, 223 forward; 193 and 211 backward);
+     lengths (141, 193, 211, 223 forward; 193 and 211 backward) and at
+     deit_small's D = 384 with 6 heads ([384, 129, 384] and [192, 129,
+     384] forward, [192, 129, 384] backward);
   4. eval slice: ``forward_eval`` of the flagship RGBNT201 model (CLIP
      ViT-B/16, width 768, 12 heads, 256×128, SIE, SIM TOPK 80; random
      weights from a seed) on B=128 random packed uint8 images, kernel path
@@ -73,11 +75,24 @@ Phases (any failure exits non-zero; nothing is caught):
      phases 4 and 6; launches per eval forward, train forward and backward
      (12 / 24 / 12, the prompted towers 36 / 72 / 36), ms per step by the
      host clock and device time, peak memory (no MFU: ``utils/flops``
-     counts the plain tower).
-Phases 4 and 6 also print MFU: the analytic model FLOPs
+     counts the plain tower);
+ 15. the other backbones at full width (random weights from SOLVER.SEED;
+     the flagship config but MODEL.TRANSFORMER_TYPE): vit_base_patch16_224
+     at STRIDE_SIZE 16 (129 tokens) and 12 (211), deit_small_patch16_224,
+     vit_small_patch16_224, t2t_vit_t_14, resnet50, osnet_x1_0:
+     ``forward_eval`` at B = 128 and one train step at B = 64 (bf16, device
+     augment, Adam, DROP_PATH 0.1), where the blocks take the kernels their
+     kernel path against the plain path as phases 4 and 6 (fp32 at DROP_PATH
+     0); launches per eval forward, train forward and backward asserted
+     (12 / 24 / 12, the long route's 12 at 211 tokens, 0 for vit_small's qk
+     scale, T2T and the CNNs, as in JAX), ms by the host clock and device
+     time, peak memory, MFU, and the CNN trunks' running statistics (moved
+     by the step, not by eval); then ``train_main`` and ``test_main`` on
+     the synthetic config with vit_base_patch16_224 and resnet50.
+Phases 4, 6 and 15 also print MFU: the analytic model FLOPs
 (``utils/flops.py``) over the measured time and the card's bf16 peak.
-Phases 5, 7, 8, 12 and 14 are the main paths: every launch count is zeroed
-just before each and read just after. Then the script prints the kernel table
+Phases 5, 7, 8, 12, 14 and 15 are the main paths: every launch count is
+zeroed just before each and read just after. Then the script prints the kernel table
 as one JSON line, and as its last line ``{"ok": true, "device": {...}}``.
 Details go to chiprun_out/chip_smoke.json. It imports nothing of JAX or of
 the JAX package.
@@ -237,6 +252,9 @@ def check_attention(torch, report, peaks):
         ("odd-bf16", 16, 9, 9, 384, 6, torch.bfloat16),
         ("odd-fp32", 16, 9, 9, 384, 6, torch.float32),
         ("long-hd128-bf16", 8, 17, 300, 256, 2, torch.bfloat16),   # two passes over keys
+        # deit_small's eval and train shapes: D = 384, 6 heads of 64
+        ("d384-eval-bf16", 384, 129, 129, 384, 6, torch.bfloat16),
+        ("d384-train-bf16", 192, 129, 129, 384, 6, torch.bfloat16),
     ] + [(f"len{L}-bf16", 192, L, L, 768, 12, torch.bfloat16) for L in LONG_LENGTHS] + [
         (*edge, torch.bfloat16) for edge in EDGES]
     rows = {}
@@ -256,7 +274,7 @@ def check_attention(torch, report, peaks):
         ok = bool((err <= tol).all())
         row = {"shape": [B, Lq, Lk, D, H], "dtype": str(dt).split(".")[1],
                "max_abs_err": err.max().item(), "tolerance": tol_text}
-        if name.startswith(("main", "train", "len")):
+        if name.startswith(("main", "train", "len", "d384")):
             hd = D // H
             elt = q.element_size()
             nbytes = (2 * B * Lq * D + 2 * B * Lk * D) * elt      # q, k, v read; o written
@@ -307,6 +325,8 @@ def check_attention_bwd(torch, report, peaks):
         # (211 tokens) and a 384×128 input (193)
         ("long211-bf16", 192, 211, 211, 768, 12, torch.bfloat16),
         ("long193-bf16", 192, 193, 193, 768, 12, torch.bfloat16),
+        # deit_small's train shape: D = 384, 6 heads of 64
+        ("d384-train-bf16", 192, 129, 129, 384, 6, torch.bfloat16),
     ] + [(*edge, torch.bfloat16) for edge in EDGES + LONG_EDGES]
     rows = {}
     for name, B, Lq, Lk, D, H, dt in cases:
@@ -325,7 +345,7 @@ def check_attention_bwd(torch, report, peaks):
                "max_abs_err_dq_dk_dv": [e.max().item() for e in errs],
                "max_abs_want_dq_dk_dv": [b.float().abs().max().item() for b in want],
                "tolerance": tol_text}
-        if name.startswith(("main", "long")):
+        if name.startswith(("main", "long", "d384")):
             hd = D // H
             elt = q.element_size()
             # q, g read and dq written (Lq); k, v read and dk, dv written (Lk)
@@ -1669,6 +1689,252 @@ def check_variants(torch, report):
     return driven
 
 
+# the other backbones at full width: (name, overrides of
+# configs/RGBNT201/Signal.yml, forward / backward kernel launches per eval
+# forward and train step: 12 / 24 / 12 where the blocks take the kernel, 0
+# where JAX's do not (vit_small's qk scale, T2T, the CNNs))
+BACKBONES = [
+    ("vit_base", ["MODEL.TRANSFORMER_TYPE", "vit_base_patch16_224"], True),
+    ("vit_base_stride12", ["MODEL.TRANSFORMER_TYPE", "vit_base_patch16_224",
+                           "MODEL.STRIDE_SIZE", "[12, 12]"], True),
+    ("deit_small", ["MODEL.TRANSFORMER_TYPE", "deit_small_patch16_224"], True),
+    ("vit_small", ["MODEL.TRANSFORMER_TYPE", "vit_small_patch16_224"], False),
+    ("t2t_vit_t_14", ["MODEL.TRANSFORMER_TYPE", "t2t_vit_t_14"], False),
+    ("resnet50", ["MODEL.TRANSFORMER_TYPE", "resnet50"], False),
+    ("osnet_x1_0", ["MODEL.TRANSFORMER_TYPE", "osnet_x1_0"], False),
+]
+
+
+def base_stats(model):
+    """The CNN trunk's BatchNorm running statistics, copied."""
+    return {k: v.clone() for k, v in model.state_dict().items()
+            if k.startswith("base.") and "running_" in k}
+
+
+def check_backbones(torch, report):
+    """Phase 15: each other backbone at full width (random weights from
+    SOLVER.SEED; the flagship config but MODEL.TRANSFORMER_TYPE and, where
+    named, STRIDE_SIZE). Where the blocks take the kernels, the kernel path
+    against the plain-attention path as phases 4 and 6 hold it, in fp32 at
+    DROP_PATH 0 (``forward_train`` without a generator draws no masks) and
+    in bf16; then the paths as configured, driven with the counts zeroed
+    before and read after: ``forward_eval`` at B = 128 and the train step
+    at B = 64 (bf16, device augment, Adam, DROP_PATH 0.1 from the config):
+    launches per eval forward, train forward and backward (asserted: 12 /
+    24 / 12 with the kernel, all 12 backward launches on the long route at
+    211 tokens, 0 without), ms by the host clock and device time, peak
+    memory, MFU. For the CNNs, the trunk's running statistics move in the
+    train step and not in eval. → the driven launches."""
+    from signal_tpu_torch.config import load_config
+    from signal_tpu_torch.data.augment import normalize_images
+    from signal_tpu_torch.engine.train import make_train_step
+    from signal_tpu_torch.models import signal_model as sm
+    from signal_tpu_torch.ops.flash_attention import attention_bwd_cuda, attention_fwd_cuda
+    from signal_tpu_torch.solver import make_optimizer, schedule_coeffs, set_lr
+
+    C, B_eval = 171, 128
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    driven = {"attention_fwd": 0, "attention_bwd": 0, "attention_bwd_long": 0}
+    out = {}
+    for name, opts, kernel in BACKBONES:
+        t0 = time.perf_counter()
+        cfg = load_config(str(REPO / "configs/RGBNT201/Signal.yml"), opts)
+        B, K = cfg.SOLVER.IMS_PER_BATCH, cfg.DATALOADER.NUM_INSTANCE
+        spec = sm.ModelSpec.from_config(cfg, num_classes=C, camera_num=4)
+        if spec.attention_kernel != kernel or B != 64 or cfg.MODEL.DROP_PATH != 0.1:
+            raise SystemExit(f"{name}: {spec}")
+        tokens = spec.h * spec.w + 1
+        model = sm.init_signal(spec, seed=cfg.SOLVER.SEED).to("cuda")
+        H, W = cfg.INPUT.SIZE_TRAIN
+        u8e = torch.randint(0, 256, (B_eval, 3, 3, H, W), dtype=torch.uint8, device="cuda",
+                            generator=gen)
+        cams_e = torch.randint(0, 4, (B_eval,), device="cuda", generator=gen)
+        imgs_e = normalize_images(u8e, cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD)
+        u8 = torch.randint(0, 256, (B, 3, 3, H, W), dtype=torch.uint8, device="cuda",
+                           generator=gen)
+        pids = torch.randperm(C, device="cuda", generator=gen)[:B // K].repeat_interleave(K)
+        cams = torch.randint(0, 4, (B,), device="cuda", generator=gen)
+        row = {"transformer_type": cfg.MODEL.TRANSFORMER_TYPE, "backbone": spec.backbone,
+               "width": spec.width, "layers": spec.layers, "heads": spec.num_heads,
+               "tokens": tokens, "feat_dim": spec.feat_dim, "batch_eval": B_eval,
+               "batch_train": B, "params_m": sum(p.numel() for p in model.parameters()) / 1e6}
+        if kernel:
+            imgs = normalize_images(u8, cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD)
+            paths = Paths(torch, model, spec, cfg, imgs, pids, cams)
+
+            def features(dtype, use_flash):
+                model.spec = dataclasses.replace(spec, compute_dtype=dtype, use_flash=use_flash)
+                before = attention_fwd_cuda.launches
+                with torch.inference_mode():
+                    patches, cls, _ = sm._encode(model, imgs_e, cams_e)
+                    feats = sm.forward_eval(model, imgs_e, cams_e)
+                torch.cuda.synchronize()
+                launched = attention_fwd_cuda.launches - before
+                if launched != (2 * spec.layers if use_flash else 0):
+                    raise SystemExit(f"{name} eval {dtype} use_flash={use_flash}: {launched} "
+                                     f"kernel launches")
+                return patches, cls, feats
+
+            # eval, fp32 (phase 4): atol 1e-3 + rtol 1e-3
+            _, _, f_k = features("float32", True)
+            _, _, f_p = features("float32", False)
+            row["eval_fp32_feat_max_abs_err"] = (f_k - f_p).abs().max().item()
+            if not torch.allclose(f_k, f_p, atol=1e-3, rtol=1e-3):
+                raise SystemExit(f"{name}: fp32 features, kernel vs plain path max abs err "
+                                 f"{row['eval_fp32_feat_max_abs_err']} (atol 1e-3 + rtol 1e-3)")
+            # eval, bf16 (phase 4): the tower's outputs by cosine > 0.99
+            p_k, c_k, f_k = features("bfloat16", True)
+            p_p, c_p, _ = features("bfloat16", False)
+            cos = torch.nn.functional.cosine_similarity
+            row.update(eval_bf16_cls_cos_min=cos(c_k.flatten(0, 1), c_p.flatten(0, 1),
+                                                 dim=-1).min().item(),
+                       eval_bf16_patch_cos_min=cos(p_k.flatten(0, 2), p_p.flatten(0, 2),
+                                                   dim=-1).min().item())
+            if min(row["eval_bf16_cls_cos_min"], row["eval_bf16_patch_cos_min"]) <= 0.99:
+                raise SystemExit(f"{name}: bf16 eval, kernel vs plain path: {row}")
+            del f_k, f_p, p_k, c_k, p_p, c_p
+            # train, fp32 at DROP_PATH 0 (phase 6): loss rtol 1e-5, gradients
+            loss_k, g_k = paths.loss_and_grads("float32", True)
+            loss_p, g32 = paths.loss_and_grads("float32", False)
+            worst, zero = paths.hold_fp32(g_k, g32, name)
+            row.update(train_fp32_loss_kernel=loss_k, train_fp32_loss_plain=loss_p,
+                       train_fp32_grad_max_rel_l2=worst, n_grads=len(g32))
+            if not math.isclose(loss_k, loss_p, rel_tol=1e-5):
+                raise SystemExit(f"{name}: fp32 loss, kernel path {loss_k} vs plain {loss_p}")
+            del g_k, g32
+            # train, bf16 (phase 6): the backward kernel against its plain
+            # version in the step, both kernels through the tower
+            names = [n_ for n_, _ in paths.params if n_ not in zero]
+            loss_k, g_k = paths.loss_and_grads("bfloat16", True)
+            _, g_b = paths.loss_and_grads("bfloat16", True, plain_bwd=True)
+            bwd_cos = cosines(torch, g_k, g_b, names)
+            del g_k, g_b
+            t_k, t_p = paths.tower_grads(True), paths.tower_grads(False)
+            tower = cosines(torch, t_k, t_p, [n_ for n_ in t_p if n_ not in zero])
+            del t_k, t_p
+            lb, lt = min(bwd_cos, key=bwd_cos.get), min(tower, key=tower.get)
+            row.update(train_bf16_loss=loss_k, bwd_kernel_vs_plain_grad_cos_min=bwd_cos[lb],
+                       bwd_kernel_vs_plain_grad_cos_min_tensor=lb, tower_grad_cos_min=tower[lt],
+                       tower_grad_cos_min_tensor=lt)
+            if not (math.isfinite(loss_k) and bwd_cos[lb] > 0.99 and tower[lt] > 0.99):
+                raise SystemExit(f"{name}: bf16 kernels disagree with their plain versions: "
+                                 f"{row}")
+            model.load_state_dict(paths.state0)
+            del paths, imgs
+        model.spec = spec
+
+        def evaluate():
+            with torch.inference_mode():
+                return sm.forward_eval(model, normalize_images(u8e, cfg.INPUT.PIXEL_MEAN,
+                                                               cfg.INPUT.PIXEL_STD), cams_e)
+
+        feats = evaluate()
+        torch.cuda.synchronize()
+        if not (bool(torch.isfinite(feats).all())
+                and tuple(feats.shape) == (B_eval, spec.eval_feat_dim)):
+            raise SystemExit(f"{name}: eval features {tuple(feats.shape)}, finite "
+                             f"{bool(torch.isfinite(feats).all())}")
+        stats0 = base_stats(model)
+        attention_fwd_cuda.launches = attention_bwd_cuda.launches = 0
+        t1 = time.perf_counter()
+        for _ in range(2):
+            evaluate()
+        torch.cuda.synchronize()
+        row["eval_ms_per_batch"] = (time.perf_counter() - t1) / 2 * 1e3
+        row["eval_launches_per_forward"] = attention_fwd_cuda.launches / 2
+        driven["attention_fwd"] += attention_fwd_cuda.launches
+        row["eval_mfu"] = mfu(torch, spec, B_eval, row["eval_ms_per_batch"])
+        eval_moved = any(not torch.equal(v, stats0[k]) for k, v in base_stats(model).items())
+        optimizer = make_optimizer(model, cfg)
+        set_lr(optimizer, *schedule_coeffs(cfg, 1))
+        step = make_train_step(model, cfg, C, optimizer, device_augment=True,
+                               gen=torch.Generator(device="cuda").manual_seed(4))
+        timed = time_train_steps(torch, step, (u8, pids, cams), n=2)
+        for k in ("fwd", "bwd", "bwd_long"):
+            key = f"attention_{k}_launches_per_step"
+            driven[f"attention_{k}"] += round(timed[key] * 2)
+        train_moved = [not torch.equal(v, stats0[k]) for k, v in base_stats(model).items()]
+        row.update(train_ms_per_step=timed["ms_per_step"],
+                   train_samples_per_s=timed["samples_per_s"],
+                   train_peak_memory_gib=timed["peak_memory_gib"],
+                   train_fwd_launches_per_step=timed["attention_fwd_launches_per_step"],
+                   train_bwd_launches_per_step=timed["attention_bwd_launches_per_step"],
+                   train_bwd_long_launches_per_step=timed[
+                       "attention_bwd_long_launches_per_step"],
+                   train_losses=timed["losses"],
+                   train_device_busy_ms_per_step=device_busy_ms(torch, step, (u8, pids, cams),
+                                                                n=1))
+        row["train_mfu_host"] = mfu(torch, spec, B, row["train_ms_per_step"], train=True)
+        row["train_mfu_device"] = mfu(torch, spec, B, row["train_device_busy_ms_per_step"],
+                                      train=True)
+        if spec.backbone in ("resnet", "osnet"):
+            row.update(bn_stats=len(stats0), bn_stats_moved_in_eval=eval_moved,
+                       bn_stats_moved_in_train=sum(train_moved))
+        row["seconds"] = time.perf_counter() - t0
+        log(f"[backbones] {name}: {json.dumps(row)}")
+        n = spec.layers if kernel else 0
+        got = (row["eval_launches_per_forward"], row["train_fwd_launches_per_step"],
+               row["train_bwd_launches_per_step"])
+        if got != (n, 2 * n, n):
+            raise SystemExit(f"{name}: launches (eval, train fwd, train bwd) {got}, "
+                             f"want {(n, 2 * n, n)}")
+        long_want = n if tokens > 160 else 0   # the backward's long route past 160 tokens
+        if row["train_bwd_long_launches_per_step"] != long_want:
+            raise SystemExit(f"{name}: {row['train_bwd_long_launches_per_step']} long-route "
+                             f"launches a step, want {long_want}")
+        if not all(math.isfinite(x) for x in row["train_losses"]):
+            raise SystemExit(f"{name}: non-finite train loss {row['train_losses']}")
+        if spec.backbone in ("resnet", "osnet") and (eval_moved or not all(train_moved)):
+            raise SystemExit(f"{name}: the trunk's running statistics moved in eval "
+                             f"({eval_moved}) or not all in the train step "
+                             f"({sum(train_moved)} of {len(train_moved)})")
+        out[name] = row
+        del model, optimizer, step, imgs_e, u8, u8e, feats
+        torch.cuda.empty_cache()
+    report["backbones"] = out
+    return driven
+
+
+def run_backbone_entry_points(torch, report):
+    """Phase 15, end to end: ``cli.train_main`` (one epoch and its eval)
+    then ``cli.test_main`` on the synthetic config at full width with
+    MODEL.TRANSFORMER_TYPE vit_base_patch16_224 (the kernels: forward and
+    backward launches > 0) and resnet50 (none). → the launches."""
+    from signal_tpu_torch.cli import test_main, train_main
+    from signal_tpu_torch.ops.flash_attention import attention_bwd_cuda, attention_fwd_cuda
+
+    work = REPO / "build" / "chip_smoke_backbones"
+    shutil.rmtree(work, ignore_errors=True)
+    driven = {"attention_fwd": 0, "attention_bwd": 0}
+    out = {}
+    for ttype, kernel in (("vit_base_patch16_224", True), ("resnet50", False)):
+        opts = ["MODEL.DEVICE", "cuda", "MODEL.TRANSFORMER_TYPE", ttype, "OUTPUT_DIR",
+                str(work / ttype)]
+        attention_fwd_cuda.launches = attention_bwd_cuda.launches = 0
+        t0 = time.perf_counter()
+        state = train_main(["--config_file", str(REPO / "configs/synthetic/smoke.yml")] + opts
+                           + ["SOLVER.MAX_EPOCHS", "1", "SOLVER.EVAL_PERIOD", "1"])
+        cmc, mAP = test_main(["--config_file", str(REPO / "configs/synthetic/smoke.yml")]
+                             + opts + ["TEST.IMS_PER_BATCH", "8"])
+        torch.cuda.synchronize()
+        row = {"loss": state.loss, "train_mAP": state.mAP, "test_mAP": float(mAP),
+               "test_rank1": float(cmc[0]), "seconds": time.perf_counter() - t0,
+               "attention_fwd_launches": attention_fwd_cuda.launches,
+               "attention_bwd_launches": attention_bwd_cuda.launches}
+        log(f"[backbones] train_main + test_main {ttype}: {json.dumps(row)}")
+        if not all(math.isfinite(x) for x in (row["loss"], row["train_mAP"], row["test_mAP"])):
+            raise SystemExit(f"{ttype}: non-finite loss or mAP: {row}")
+        launched = min(row["attention_fwd_launches"], row["attention_bwd_launches"]) > 0
+        if launched != kernel or (not kernel and row["attention_fwd_launches"]):
+            raise SystemExit(f"{ttype}: kernel launches {row}")
+        driven["attention_fwd"] += row["attention_fwd_launches"]
+        driven["attention_bwd"] += row["attention_bwd_launches"]
+        out[ttype] = row
+    shutil.rmtree(work)
+    report["backbones_e2e"] = out
+    return driven
+
+
 def run_main_path(torch, report):
     """Phase 5: the test CLI end to end on the synthetic config."""
     from signal_tpu_torch.cli import test_main
@@ -1734,6 +2000,8 @@ def main() -> int:
     artifact, artifact_ms, serving_launches = check_serving(torch, report)
     check_host_data(torch, report, artifact, artifact_ms)
     variant_launches = check_variants(torch, report)
+    backbone_launches = check_backbones(torch, report)
+    backbone_e2e = run_backbone_entry_points(torch, report)
 
     def entry(kernel, source, replaces, rows, launches):
         bf16, fp32 = rows["main-bf16"], rows["main-fp32"]
@@ -1761,6 +2029,17 @@ def main() -> int:
     fwd["library_ms_train_shape"] = rows["train-bf16"]["library_ms"]
     bwd_entry["launches_recipe"] = recipe_launches["attention_bwd"]
     bwd_entry["launches_variants"] = variant_launches["attention_bwd"]
+    # phase 15: the other backbones' driven paths and their entry points
+    fwd["launches_backbones"] = backbone_launches["attention_fwd"]
+    fwd["launches_backbones_e2e"] = backbone_e2e["attention_fwd"]
+    bwd_entry["launches_backbones"] = backbone_launches["attention_bwd"]
+    bwd_entry["launches_backbones_e2e"] = backbone_e2e["attention_bwd"]
+    for kernel_rows, entry_ in ((rows, fwd), (bwd, bwd_entry)):
+        for n in [n for n in kernel_rows if n.startswith("d384")]:
+            tag = n.removesuffix("-bf16").replace("-", "_")
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
+                        "tflops", "shape"):
+                entry_[f"{key}_{tag}"] = kernel_rows[n][key]
     long_rows = {n: r for n, r in bwd.items()
                  if r["dtype"] == "bfloat16" and max(r["shape"][1:3]) > 160}
     bwd_entry["max_abs_err_long_route"] = max(r["max_abs_err"] for r in long_rows.values())
@@ -1776,6 +2055,7 @@ def main() -> int:
         "replaces": "signal_tpu/ops/flash_attention.py:123",
         "kernels": ["attention_bwd_stats_mma_kernel", "attention_bwd_long_mma_kernel"],
         "launches": variant_launches["attention_bwd_long"],
+        "launches_backbones": backbone_launches["attention_bwd_long"],
         "max_abs_err": bwd_entry["max_abs_err_long_route"],
         **{key: long211[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                          "library_ms", "tflops", "shape")},

@@ -90,6 +90,22 @@ def refuse_dist_train(cfg) -> None:
             "yet (scale-out, ROADMAP Queue 1 item 6); unset it to run on one device")
 
 
+def refuse_clip_path(cfg) -> None:
+    """A CLIP archive (MODEL.PRETRAIN_PATH_CLIP / PRETRAIN_PATH_T) loads
+    into the CLIP tower only. The JAX package loads it into whatever
+    backbone the config names (`signal_tpu/engine/train.py:301-305`),
+    which gives a CLIP-shaped tree under another backbone's spec; the port
+    raises instead."""
+    path = cfg.MODEL.PRETRAIN_PATH_CLIP or cfg.MODEL.PRETRAIN_PATH_T
+    if path and "ViT-B-16" not in cfg.MODEL.TRANSFORMER_TYPE:
+        raise ValueError(
+            f"MODEL.PRETRAIN_PATH_CLIP/PRETRAIN_PATH_T={path!r} is a CLIP archive, but "
+            f"MODEL.TRANSFORMER_TYPE={cfg.MODEL.TRANSFORMER_TYPE!r} is not the CLIP tower; "
+            f"unset the path (the other backbones' importers are "
+            f"models/vit_imagenet.load_timm_vit_params, models/resnet."
+            f"load_torchvision_resnet50 and models/osnet.load_torchreid_osnet)")
+
+
 def _seed(cfg) -> None:
     random.seed(cfg.SOLVER.SEED)
     np.random.seed(cfg.SOLVER.SEED)
@@ -104,7 +120,8 @@ def train_main(argv=None, *, preempt_event=None, step_callback=None):
     ``--resume`` continues from a checkpoint the loop wrote, such as the
     ``<MODEL.NAME>_preempt.pth`` a SIGTERM leaves in the run's directory.
     MODEL.PRETRAIN_PATH_CLIP (or PRETRAIN_PATH_T) names OpenAI's CLIP
-    archive, whose visual tower replaces the seeded random one.
+    archive, whose visual tower replaces the seeded random one; with
+    another MODEL.TRANSFORMER_TYPE it raises (:func:`refuse_clip_path`).
     ``preempt_event`` and ``step_callback`` go to :func:`do_train`."""
     parser = argparse.ArgumentParser(description="Signal PyTorch-port training")
     parser.add_argument("--config_file", default="configs/RGBNT201/Signal.yml", type=str)
@@ -121,6 +138,7 @@ def train_main(argv=None, *, preempt_event=None, step_callback=None):
 
     cfg = load_config(args.config_file if args.config_file else None, args.opts)
     refuse_dist_train(cfg)
+    refuse_clip_path(cfg)
     _seed(cfg)
 
     from signal_tpu_torch.data import make_dataloader

@@ -57,7 +57,9 @@ def make_train_step(model: Signal, cfg, num_classes: int, optimizer: torch.optim
     """→ ``train_step(imgs, pids, camids) -> (loss, acc)``, both 0-d tensors
     on the device. ``imgs``: a packed [B, 3, 3, H, W] batch (uint8, or float
     normalized on the host) or a modality dict. ``device_augment`` draws
-    flip / pad + crop / erase from ``gen`` (a generator on the device).
+    flip / pad + crop / erase from ``gen`` (a generator on the device), and
+    so does the ImageNet tower's stochastic depth at MODEL.DROP_PATH > 0
+    (its keep masks, drawn before the blocks: JAX's ``needs_rng``).
 
     ``centers`` [num_classes, dim] (a ``center`` METRIC_LOSS_TYPE needs
     them): the class centres, a leaf tensor that requires grad. The loss
@@ -82,8 +84,11 @@ def make_train_step(model: Signal, cfg, num_classes: int, optimizer: torch.optim
     if use_center and centers is None:
         raise ValueError(f"MODEL.METRIC_LOSS_TYPE={cfg.MODEL.METRIC_LOSS_TYPE!r} needs the "
                          f"class centres (make_train_step(..., centers=...))")
-    if device_augment and gen is None:
-        raise ValueError("device_augment needs a torch.Generator on the batch's device")
+    spec = model.spec
+    drop_path = spec.backbone == "imagenet" and spec.drop_path > 0
+    if (device_augment or drop_path) and gen is None:
+        raise ValueError("device_augment and MODEL.DROP_PATH need a torch.Generator on the "
+                         "batch's device")
     loss_fn = make_loss(cfg, num_classes)
     gram_w, pat_w = cfg.MODEL.Gram_Loss_weight, cfg.MODEL.PAT_Loss_weight
     moe_w = float(cfg.MODEL.MoE_Loss_weight)
@@ -105,7 +110,7 @@ def make_train_step(model: Signal, cfg, num_classes: int, optimizer: torch.optim
 
     def forward(imgs, pids, camids):
         with true_fp32():
-            out = forward_train(model, imgs, camids)
+            out = forward_train(model, imgs, camids, gen=gen if drop_path else None)
             loss = total_train_loss(out, pids, loss_fn, gram_weight=gram_w, pat_weight=pat_w,
                                     moe_weight=moe_w)
             if use_center:

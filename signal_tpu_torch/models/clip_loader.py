@@ -28,6 +28,7 @@ from typing import Dict
 
 import torch
 
+from signal_tpu_torch.models.lora import plain_name
 from signal_tpu_torch.models.vit import VisionTransformer, resize_pos_embed
 from signal_tpu_torch.ops.moe import upcycle_dense_mlp
 
@@ -48,10 +49,9 @@ def _archive_key(key: str) -> str | None:
     """The CLIP archive's name (without ``visual.``) for a key of the
     tower's state dict; None for what CLIP has no weights for (adapters,
     prompts, LoRA factors, MoE)."""
-    if ".parametrizations." in key:
-        if not key.endswith(".original"):
-            return None                       # LoRA factors
-        return key.replace(".parametrizations.", ".").removesuffix(".original")
+    key = plain_name(key)
+    if key is None:
+        return None                           # LoRA factors
     if ".moe." in key or any(part.startswith("adapter_") for part in key.split(".")):
         return None
     return key

@@ -45,6 +45,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from signal_tpu_torch.models.lora import TARGETS
 from signal_tpu_torch.ops.attention import (
     MultiheadAttentionParams,
     layer_norm,
@@ -162,6 +163,12 @@ class VisionTransformer(nn.Module):
                                         moe_experts=moe_experts)
         self.ln_post = nn.LayerNorm(width)
         self.proj = nn.Parameter(torch.empty(width, output_dim))
+
+    def lora_paths(self):
+        """The kernels MODEL.FROZEN adapts (``models/lora.py``)."""
+        for i in range(len(self.transformer.resblocks)):
+            for module, weight in TARGETS:
+                yield f"transformer.resblocks.{i}.{module}.{weight}"
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:

@@ -114,18 +114,20 @@ def linear(weight: torch.Tensor, bias, x: torch.Tensor,
     return y if out_dtype is None else y.to(out_dtype)
 
 
-def _attention_core(q, k, v, num_heads: int, compute_dtype=torch.bfloat16):
+def _attention_core(q, k, v, num_heads: int, compute_dtype=torch.bfloat16, scale=None):
     """Eager softmax attention. q [B, Lq, D], k/v [B, Lk, D] → fp32
     [B, Lq, D]. q is scaled BEFORE the cast to the compute dtype
     (`signal_tpu/ops/attention.py:83`); the kernel path scales after the
-    dot instead (`ops/flash_attention.py`)."""
+    dot instead (`ops/flash_attention.py`). ``scale``: the qk scale
+    (default 1/√head_dim)."""
     B, Lq, D = q.shape
     Lk = k.shape[1]
     hd = D // num_heads
     q = q.reshape(B, Lq, num_heads, hd).transpose(1, 2)
     k = k.reshape(B, Lk, num_heads, hd).transpose(1, 2)
     v = v.reshape(B, Lk, num_heads, hd).transpose(1, 2)
-    scale = 1.0 / math.sqrt(hd)
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
     # operands rounded to the compute dtype, then multiplied in fp32:
     # the exact value of a compute-dtype product with fp32 accumulation
     qs = (q * scale).to(compute_dtype).float()
@@ -135,29 +137,43 @@ def _attention_core(q, k, v, num_heads: int, compute_dtype=torch.bfloat16):
     return out.transpose(1, 2).reshape(B, Lq, D)
 
 
-def mha(attn: nn.Module, q_in: torch.Tensor, kv_in: torch.Tensor | None = None, *,
-        num_heads: int, compute_dtype=torch.bfloat16,
-        use_flash: bool = False) -> torch.Tensor:
-    """Multi-head (self or cross) attention over ``nn.MultiheadAttention``'s
-    packed layout: ``in_proj_weight [3D, D]``, ``in_proj_bias [3D]``,
-    ``out_proj.weight [D, D]``, ``out_proj.bias [D]``. ``use_flash`` routes
-    the core through :func:`signal_tpu_torch.ops.flash_attention.flash_attention`
-    (the CUDA kernel on the card)."""
+def attention(qkv_weight: torch.Tensor, qkv_bias: torch.Tensor, out_weight: torch.Tensor,
+              out_bias: torch.Tensor, q_in: torch.Tensor, kv_in: torch.Tensor | None = None,
+              *, num_heads: int, compute_dtype=torch.bfloat16, use_flash: bool = False,
+              scale=None) -> torch.Tensor:
+    """Multi-head (self or cross) attention from a packed ``[3D, D]``
+    q|k|v projection and a ``[D, D]`` output projection (torch's
+    ``[out, in]`` weights). The core goes through
+    :func:`signal_tpu_torch.ops.flash_attention.flash_attention` (the CUDA
+    kernel on the card) only when ``use_flash`` and no ``scale`` override
+    is given, else the eager core: the JAX package's rule
+    (`signal_tpu/ops/attention.py:131-138`)."""
     if kv_in is None:
         kv_in = q_in
-    wq, wk, wv = attn.in_proj_weight.chunk(3, dim=0)
-    bq, bk, bv = attn.in_proj_bias.chunk(3, dim=0)
+    wq, wk, wv = qkv_weight.chunk(3, dim=0)
+    bq, bk, bv = qkv_bias.chunk(3, dim=0)
     q = linear(wq, bq, q_in, compute_dtype)
     k = linear(wk, bk, kv_in, compute_dtype)
     v = linear(wv, bv, kv_in, compute_dtype)
-    if use_flash:
+    if use_flash and scale is None:
         from signal_tpu_torch.ops.flash_attention import flash_attention
 
         out = flash_attention(q, k, v, num_heads=num_heads,
                               compute_dtype=compute_dtype)
     else:
-        out = _attention_core(q, k, v, num_heads, compute_dtype)
-    return linear(attn.out_proj.weight, attn.out_proj.bias, out, compute_dtype)
+        out = _attention_core(q, k, v, num_heads, compute_dtype, scale=scale)
+    return linear(out_weight, out_bias, out, compute_dtype)
+
+
+def mha(attn: nn.Module, q_in: torch.Tensor, kv_in: torch.Tensor | None = None, *,
+        num_heads: int, compute_dtype=torch.bfloat16, use_flash: bool = False,
+        scale=None) -> torch.Tensor:
+    """:func:`attention` over ``nn.MultiheadAttention``'s packed layout:
+    ``in_proj_weight [3D, D]``, ``in_proj_bias [3D]``, ``out_proj.weight
+    [D, D]``, ``out_proj.bias [D]``."""
+    return attention(attn.in_proj_weight, attn.in_proj_bias, attn.out_proj.weight,
+                     attn.out_proj.bias, q_in, kv_in, num_heads=num_heads,
+                     compute_dtype=compute_dtype, use_flash=use_flash, scale=scale)
 
 
 class MultiheadAttentionParams(nn.Module):

@@ -29,9 +29,10 @@ holds the kernel loads only where ``signal_tpu_torch`` is installed
 does not hold the process-wide TF32 flags, so the loaded callable runs
 under ``true_fp32()``, as the eager path does where it needs full fp32.
 
-``export_bridged``/``load_exported_bridged`` are not ported: they export a
-``torch_bridge`` module, which has no counterpart in the port (ROADMAP
-Queue 1 item 4).
+``export_bridged``/``load_exported_bridged`` have no counterpart: they
+export a zoo CNN lowered to JAX by ``torch_bridge``, while the port's
+``models/zoo.build_zoo_backbone`` returns the torch module itself, which
+``torch.export`` takes as it is.
 """
 
 from __future__ import annotations

@@ -5,16 +5,19 @@ reference's `solver/make_optimizer.py`, `cosine_lr.py`, `scheduler.py` and
 * Per-parameter (lr, weight decay, trainable) from the reference's rules,
   applied in its order over the port's reference-named parameters:
     1. a bias → lr × BIAS_LR_FACTOR, wd = WEIGHT_DECAY_BIAS;
-    2. the CLIP backbone (``clip_vision_encoder.base.*``) but its adapter
-       and prompt parameters (``adapter*`` names) → lr pinned to 5e-6,
-       unless MODEL.FROZEN; the SIE table ``cv_embed`` sits outside it, as
-       in the JAX tree;
+    2. the backbone (``clip_vision_encoder.base.*``, or ``base.*`` for
+       the others) but its adapter and prompt parameters (``adapter*``
+       names) → lr 5e-6 for the CLIP tower (MODEL.TRANSFORMER_TYPE
+       'ViT-B-16'), 0.8 × BASE_LR for the others, unless MODEL.FROZEN; the
+       CLIP tower's SIE table ``cv_embed`` sits outside it, as in the JAX
+       tree (the ImageNet and T2T towers' ``sie_embed`` inside);
     3. MSVR310: a classifier → lr × 100, wd = WEIGHT_DECAY_BIAS;
     4. LARGE_FC_LR: a classifier → lr × 2;
-  the BNNeck biases and SIM's unused ``W_v`` do not train; under
-  MODEL.FROZEN neither does the backbone, but its adapters and LoRA
-  factors (``lora_*``), which train at BASE_LR. The LoRA scale is a buffer
-  and never trains.
+  the BNNeck biases, SIM's unused ``W_v`` and T2T's sinusoid
+  ``base.pos_embed`` do not train; under MODEL.FROZEN neither does the
+  backbone, but its adapters and LoRA factors (``lora_*``), which train at
+  BASE_LR. The LoRA scale is a buffer and never trains. The groups equal
+  the JAX package's ``build_param_groups`` leaf for leaf.
 * ``torch.optim`` Adam (L2 decay into the gradient), AdamW (decoupled) or
   SGD with momentum, with one parameter group per (lr, wd). Each group
   keeps its ``base_lr``; the schedules give (a, b) per epoch and a group's
@@ -31,19 +34,21 @@ from typing import Dict, List, Tuple
 import torch
 from torch import nn
 
-CLIP_BASE = "clip_vision_encoder.base"
+# the backbone's parameters: the CLIP tower's, or any other backbone's
+BACKBONE_PREFIXES = ("clip_vision_encoder.base.", "base.")
 
 
 def param_rule(name: str, cfg) -> Tuple[float, float, bool]:
     """(lr, weight decay, trainable) of the parameter called ``name``."""
     base_lr = cfg.SOLVER.BASE_LR
+    ttype = cfg.MODEL.TRANSFORMER_TYPE
     lr, wd, trainable = base_lr, cfg.SOLVER.WEIGHT_DECAY, True
     if "bias" in name:
         lr = base_lr * cfg.SOLVER.BIAS_LR_FACTOR
         wd = cfg.SOLVER.WEIGHT_DECAY_BIAS
-    backbone = name.startswith(CLIP_BASE) and "adapter" not in name
+    backbone = name.startswith(BACKBONE_PREFIXES) and "adapter" not in name
     if backbone and not cfg.MODEL.FROZEN:
-        lr = 0.000005
+        lr = 0.000005 if ttype == "ViT-B-16" else base_lr * 0.8
     if cfg.DATASETS.NAMES == "MSVR310" and "classifier" in name:
         lr = base_lr * 100
         wd = cfg.SOLVER.WEIGHT_DECAY_BIAS
@@ -52,6 +57,8 @@ def param_rule(name: str, cfg) -> Tuple[float, float, bool]:
     if "bottleneck" in name and name.endswith("bias"):
         trainable = False
     if "W_v" in name:
+        trainable = False
+    if ttype.startswith("t2t") and name == "base.pos_embed":
         trainable = False
     if backbone and cfg.MODEL.FROZEN and "lora" not in name:
         trainable = False

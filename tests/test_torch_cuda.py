@@ -46,6 +46,8 @@ def cuda_device():
     (8, 129, 129, 768, 12, torch.float32),
     (4, 3, 384, 512, 8, torch.float32),       # cross attention, Lq != Lk
     (4, 9, 9, 384, 6, torch.bfloat16),        # odd: 6 heads of 64
+    (8, 129, 129, 384, 6, torch.bfloat16),    # deit_small's blocks: D 384, 6 heads
+    (8, 129, 129, 384, 6, torch.float32),
     (2, 17, 33, 256, 2, torch.float32),       # hd 128, ragged lengths
     (4, 3, 384, 512, 8, torch.bfloat16),      # keys past a register row: two passes
     (2, 17, 300, 256, 2, torch.bfloat16),     # the same at hd 128
@@ -102,6 +104,8 @@ def test_attention_fwd_kernel_refuses_a_graph(cuda_device):
     (4, 3, 129, 512, 8, torch.float32),       # cross attention, Lq < Lk
     (4, 40, 7, 512, 8, torch.bfloat16),       # cross attention, Lq > Lk
     (4, 9, 9, 384, 6, torch.bfloat16),        # odd: 6 heads of 64
+    (8, 129, 129, 384, 6, torch.bfloat16),    # deit_small's blocks: D 384, 6 heads
+    (8, 129, 129, 384, 6, torch.float32),
     (2, 17, 33, 256, 2, torch.float32),       # hd 128, ragged lengths
     (2, 160, 160, 256, 2, torch.bfloat16),    # the longest the fused bf16 kernel takes
     (4, 211, 211, 768, 12, torch.bfloat16),   # STRIDE_SIZE 12: the long route
@@ -300,13 +304,16 @@ def test_accumulation_on_the_card_equals_one_step_on_half(cuda_device):
     ("moe", dict(moe_experts=4, moe_topk=2)),
     ("frozen", dict(frozen=True)),
     ("stride12", dict(h=21, w=10, stride_size=12)),
+    ("imagenet", dict(backbone="imagenet", feat_dim=128, img_h=64, img_w=64)),
+    ("imagenet_stride12", dict(backbone="imagenet", feat_dim=128, h=21, w=10,
+                               stride_size=12, img_h=256, img_w=124)),
 ])
 def test_variant_train_step_goes_through_both_kernels(cuda_device, name, opts):
     """One fp32 train step's loss and gradients of a small variant tower on
     the card, kernel path against plain-attention path, with its launches:
     2 forward and 1 backward per block and stream (the prompted tower runs
     three streams; STRIDE_SIZE 12 runs 211 tokens, the backward's long route
-    in bf16 — here fp32)."""
+    in bf16 — here fp32), and the ImageNet ViT's at both strides."""
     import dataclasses
 
     from signal_tpu_torch.models import signal_model as sm

@@ -54,7 +54,9 @@ def test_importing_the_port_loads_neither_jax_nor_signal_tpu():
         "assert {'signal_tpu_torch.cli', 'signal_tpu_torch.engine.eval',\n"
         "        'signal_tpu_torch.engine.train', 'signal_tpu_torch.solver',\n"
         "        'signal_tpu_torch.models.vit_prompt', 'signal_tpu_torch.models.lora',\n"
-        "        'signal_tpu_torch.ops.moe'} <= new\n"
+        "        'signal_tpu_torch.ops.moe', 'signal_tpu_torch.models.vit_imagenet',\n"
+        "        'signal_tpu_torch.models.t2t', 'signal_tpu_torch.models.resnet',\n"
+        "        'signal_tpu_torch.models.osnet', 'signal_tpu_torch.models.zoo'} <= new\n"
         "print('BAD', bad)\n")
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -54,8 +54,13 @@ def test_analytic_flops_of_the_flagship():
     spec = tsm.ModelSpec.from_config(load_config(CONFIGS[0]), num_classes=171, camera_num=4)
     assert 8.7e12 < flops.signal_analytic_flops(spec, 128) < 9.0e12
     assert 13.1e12 < flops.signal_analytic_flops(spec, 64, train=True) < 13.5e12
-    with pytest.raises(NotImplementedError, match="CLIP"):
-        flops.signal_analytic_flops(dataclasses.replace(spec, backbone="resnet"), 1)
+    # the other backbones count as JAX's do (every one is held in
+    # tests/test_torch_backbones.py)
+    jspec = jsm.ModelSpec.from_config(jload_config(CONFIGS[0]), num_classes=171, camera_num=4)
+    for fields in (dict(backbone="resnet", layers=50, feat_dim=2048, h=16, w=8),
+                   dict(backbone="imagenet", feat_dim=768)):
+        assert flops.signal_analytic_flops(dataclasses.replace(spec, **fields), 1) == \
+            jflops.signal_analytic_flops(dataclasses.replace(jspec, **fields), 1)
 
 
 def test_flop_counter_matches_the_analytic_count_less_the_kernel():
