@@ -88,11 +88,28 @@ Phases (any failure exits non-zero; nothing is caught):
      scale, T2T and the CNNs, as in JAX), ms by the host clock and device
      time, peak memory, MFU, and the CNN trunks' running statistics (moved
      by the step, not by eval); then ``train_main`` and ``test_main`` on
-     the synthetic config with vit_base_patch16_224 and resnet50.
+     the synthetic config with vit_base_patch16_224 and resnet50;
+ 16. CLIP-ReID at full width (random weights from SOLVER.SEED, bf16, the
+     flagship config's 256×128 input and SIE, RGBNT201's 171 classes; CLIP
+     ViT-B/16 and its text tower 512 × 12 × 8 heads over 77 positions and
+     49,408 tokens; the tokenizer on the port's vocabulary):
+     ``clipreid_forward_eval`` at B = 128 with NECK_FEAT before and after,
+     and one train step at B = 64 (P×K 8 × 8; cross entropy on both
+     scores, triplet on the three features, image-to-text cross entropy
+     against the 171 classes' text features, SupCon both ways; Adam), the
+     kernel path against the plain path as phases 4 and 6; launches (12 a
+     forward, 24 + 12 a step), ms by the host clock and device time, peak
+     memory, eval MFU; the text features of all classes (ms, finite,
+     causal in fp32); the metric-loss zoo on the card against the CPU
+     (fp32, B = 64, D 768 and 512, C 171, values and input gradients); a
+     seeded CLIP archive with both halves at their published shapes
+     imported through ``load_clip_into_clipreid``. The kernels of phase 3
+     also run at its shapes ([128, 129, 768] forward, [64, 129, 768]
+     forward and backward, bf16 and fp32).
 Phases 4, 6 and 15 also print MFU: the analytic model FLOPs
 (``utils/flops.py``) over the measured time and the card's bf16 peak.
-Phases 5, 7, 8, 12, 14 and 15 are the main paths: every launch count is
-zeroed just before each and read just after. Then the script prints the kernel table
+Phases 5, 7, 8, 12, 14, 15 and 16 are the main paths: every launch count
+is zeroed just before each and read just after. Then the script prints the kernel table
 as one JSON line, and as its last line ``{"ok": true, "device": {...}}``.
 Details go to chiprun_out/chip_smoke.json. It imports nothing of JAX or of
 the JAX package.
@@ -146,6 +163,15 @@ LONG_EDGES = [(f"edge-{lq}x{lk}-hd{hd}", 2, lq, lk, 2 * hd, 2) for hd in (64, 12
 # the forward at the variants' lengths: the prompted blocks' 141, and 193,
 # 211 and 223 (the second pass over keys)
 LONG_LENGTHS = (141, 193, 211, 223)
+
+
+def clipreid_cases(torch, kinds=("eval", "train")):
+    """CLIP-ReID's attention shapes (phase 16): one modality, eval at
+    TEST.IMS_PER_BATCH 128 and train at IMS_PER_BATCH 64, bf16 and fp32;
+    (name, B, Lq, Lk, D, H, dtype)."""
+    return [(f"clipreid-{kind}-{tag}", b, 129, 129, 768, 12, dt)
+            for kind, b in (("eval", 128), ("train", 64)) if kind in kinds
+            for tag, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32))]
 
 
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -255,7 +281,8 @@ def check_attention(torch, report, peaks):
         # deit_small's eval and train shapes: D = 384, 6 heads of 64
         ("d384-eval-bf16", 384, 129, 129, 384, 6, torch.bfloat16),
         ("d384-train-bf16", 192, 129, 129, 384, 6, torch.bfloat16),
-    ] + [(f"len{L}-bf16", 192, L, L, 768, 12, torch.bfloat16) for L in LONG_LENGTHS] + [
+    ] + clipreid_cases(torch) + [
+        (f"len{L}-bf16", 192, L, L, 768, 12, torch.bfloat16) for L in LONG_LENGTHS] + [
         (*edge, torch.bfloat16) for edge in EDGES]
     rows = {}
     for name, B, Lq, Lk, D, H, dt in cases:
@@ -274,7 +301,7 @@ def check_attention(torch, report, peaks):
         ok = bool((err <= tol).all())
         row = {"shape": [B, Lq, Lk, D, H], "dtype": str(dt).split(".")[1],
                "max_abs_err": err.max().item(), "tolerance": tol_text}
-        if name.startswith(("main", "train", "len", "d384")):
+        if name.startswith(("main", "train", "len", "d384", "clipreid")):
             hd = D // H
             elt = q.element_size()
             nbytes = (2 * B * Lq * D + 2 * B * Lk * D) * elt      # q, k, v read; o written
@@ -327,7 +354,8 @@ def check_attention_bwd(torch, report, peaks):
         ("long193-bf16", 192, 193, 193, 768, 12, torch.bfloat16),
         # deit_small's train shape: D = 384, 6 heads of 64
         ("d384-train-bf16", 192, 129, 129, 384, 6, torch.bfloat16),
-    ] + [(*edge, torch.bfloat16) for edge in EDGES + LONG_EDGES]
+    ] + clipreid_cases(torch, ("train",)) + [
+        (*edge, torch.bfloat16) for edge in EDGES + LONG_EDGES]
     rows = {}
     for name, B, Lq, Lk, D, H, dt in cases:
         q, g = (torch.randn(B, Lq, D, device="cuda", generator=gen).to(dt) for _ in "qg")
@@ -345,7 +373,7 @@ def check_attention_bwd(torch, report, peaks):
                "max_abs_err_dq_dk_dv": [e.max().item() for e in errs],
                "max_abs_want_dq_dk_dv": [b.float().abs().max().item() for b in want],
                "tolerance": tol_text}
-        if name.startswith(("main", "long", "d384")):
+        if name.startswith(("main", "long", "d384", "clipreid")):
             hd = D // H
             elt = q.element_size()
             # q, g read and dq written (Lq); k, v read and dk, dv written (Lk)
@@ -599,28 +627,29 @@ class Paths:
                                              allow_unused=True)
         return {n: g for (n, _), g in zip(self.params, grads) if g is not None}
 
-    def hold_fp32(self, g_k, g_plain, label: str):
-        """fp32 gradients of the kernel path against the plain path: the
-        paths differ in where the scale is applied and in summation order,
-        so each tensor is held by allclose(rtol 1e-3, atol 1e-4·max|g|);
-        one that is zero on the plain path (SIM's W_q/W_k feed only the
-        top-k; a bias in front of a BatchNorm) must be noise on both. →
-        (largest relative L2 error, the zero tensors' names)."""
-        worst, zero = 0.0, []
-        for n, b in g_plain.items():
-            a = g_k[n]
-            if b.norm().item() < 1e-6:
-                zero.append(n)
-                if a.norm().item() >= 1e-5:
-                    raise SystemExit(f"{label}: fp32 gradient of {n} zero on the plain path, "
-                                     f"norm {a.norm().item()} on the kernel path")
-                continue
-            scale = b.abs().max().item()
-            worst = max(worst, ((a - b).norm() / b.norm()).item())
-            if not self.torch.allclose(a, b, rtol=1e-3, atol=1e-4 * scale):
-                raise SystemExit(f"{label}: fp32 gradient of {n}, kernel path vs plain path "
-                                 f"max abs err {(a - b).abs().max().item()} (max |g| {scale})")
-        return worst, zero
+
+def hold_fp32(torch, g_k, g_plain, label: str):
+    """fp32 gradients of the kernel path against the plain path: the
+    paths differ in where the scale is applied and in summation order,
+    so each tensor is held by allclose(rtol 1e-3, atol 1e-4·max|g|);
+    one that is zero on the plain path (SIM's W_q/W_k feed only the
+    top-k; a bias in front of a BatchNorm) must be noise on both. →
+    (largest relative L2 error, the zero tensors' names)."""
+    worst, zero = 0.0, []
+    for n, b in g_plain.items():
+        a = g_k[n]
+        if b.norm().item() < 1e-6:
+            zero.append(n)
+            if a.norm().item() >= 1e-5:
+                raise SystemExit(f"{label}: fp32 gradient of {n} zero on the plain path, "
+                                 f"norm {a.norm().item()} on the kernel path")
+            continue
+        scale = b.abs().max().item()
+        worst = max(worst, ((a - b).norm() / b.norm()).item())
+        if not torch.allclose(a, b, rtol=1e-3, atol=1e-4 * scale):
+            raise SystemExit(f"{label}: fp32 gradient of {n}, kernel path vs plain path "
+                             f"max abs err {(a - b).abs().max().item()} (max |g| {scale})")
+    return worst, zero
 
 
 def cosines(torch, a, b, names):
@@ -658,7 +687,7 @@ def check_train_step(torch, report):
 
     loss_k, g_k = loss_and_grads("float32", True)
     loss_p, g32 = loss_and_grads("float32", False)
-    worst, zero = paths.hold_fp32(g_k, g32, "phase 6")
+    worst, zero = hold_fp32(torch, g_k, g32, "phase 6")
     out["fp32"] = {"loss_kernel": loss_k, "loss_plain": loss_p,
                    "grad_max_rel_l2": worst, "n_grads": len(g32), "zero_grads": zero}
     log(f"[train] fp32 kernel vs plain path: {json.dumps(out['fp32'])}")
@@ -774,16 +803,20 @@ def run_train_path(torch, report):
     return launches
 
 
-def write_clip_archive(torch, path: Path, layers: int = 12):
+def write_clip_archive(torch, path: Path, layers: int = 12, text: bool = False):
     """A seeded fp16 TorchScript archive laid out as OpenAI's ``ViT-B-16.pt``:
     the ``visual.*`` tensors of ViT-B/16 at their published shapes (width
-    768, 14×14 + 1 positions, proj 768×512) and one text-side tensor.
-    → the archive's state dict (fp16, on the CPU)."""
+    768, 14×14 + 1 positions, proj 768×512) and one text-side tensor; with
+    ``text`` also the text tower at its published shapes (vocabulary
+    49,408 × 512, 77 positions, 12 blocks of width 512, projection
+    512×512) under CLIP's top-level names. → the archive's state dict
+    (fp16, on the CPU)."""
     from torch import nn
 
+    from signal_tpu_torch.models.text_encoder import TextTransformer
     from signal_tpu_torch.models.vit import VisionTransformer
 
-    class Clip(nn.Module):
+    class Clip(TextTransformer if text else nn.Module):
         def __init__(self):
             super().__init__()
             self.visual = VisionTransformer(h_resolution=14, w_resolution=14, width=768,
@@ -796,8 +829,10 @@ def write_clip_archive(torch, path: Path, layers: int = 12):
     gen = torch.Generator().manual_seed(11)
     clip = Clip()
     clip.visual.reset_parameters(gen)
+    if text:
+        TextTransformer.reset_parameters(clip, gen)
     with torch.no_grad():
-        for name, p in clip.visual.named_parameters():
+        for name, p in clip.named_parameters():
             if "ln" in name:  # LayerNorms off their identity init
                 p.add_(0.1 * torch.randn(p.shape, generator=gen))
     clip = clip.half()
@@ -1604,7 +1639,7 @@ def check_variants(torch, report):
         # train, fp32: loss rtol 1e-5, every gradient as phase 6
         loss_k, g_k = paths.loss_and_grads("float32", True)
         loss_p, g32 = paths.loss_and_grads("float32", False)
-        worst, zero = paths.hold_fp32(g_k, g32, name)
+        worst, zero = hold_fp32(torch, g_k, g32, name)
         row.update(train_fp32_loss_kernel=loss_k, train_fp32_loss_plain=loss_p,
                    train_fp32_grad_max_rel_l2=worst, n_grads=len(g32))
         if not math.isclose(loss_k, loss_p, rel_tol=1e-5):
@@ -1796,7 +1831,7 @@ def check_backbones(torch, report):
             # train, fp32 at DROP_PATH 0 (phase 6): loss rtol 1e-5, gradients
             loss_k, g_k = paths.loss_and_grads("float32", True)
             loss_p, g32 = paths.loss_and_grads("float32", False)
-            worst, zero = paths.hold_fp32(g_k, g32, name)
+            worst, zero = hold_fp32(torch, g_k, g32, name)
             row.update(train_fp32_loss_kernel=loss_k, train_fp32_loss_plain=loss_p,
                        train_fp32_grad_max_rel_l2=worst, n_grads=len(g32))
             if not math.isclose(loss_k, loss_p, rel_tol=1e-5):
@@ -1935,6 +1970,422 @@ def run_backbone_entry_points(torch, report):
     return driven
 
 
+# CLIP-ReID's metric-loss zoo on the card against the CPU (phase 16): (name,
+# function of (module, feats [3, B, D], weight [C, D], class labels, PK
+# labels, K), the norm its rows are scaled to or None, the head's scale s
+# or None)
+METRIC_LOSSES = [
+    ("arcface", lambda m, f, w, c, y, k: m.arcface_logits({"weight": w}, f[0], c), None, 30.0),
+    ("arcface_easy_ls", lambda m, f, w, c, y, k: m.arcface_logits(
+        {"weight": w}, f[0], c, easy_margin=True, ls_eps=0.1), None, 30.0),
+    ("cosface", lambda m, f, w, c, y, k: m.cosface_logits({"weight": w}, f[0], c), None, 30.0),
+    ("amsoftmax", lambda m, f, w, c, y, k: m.amsoftmax_logits({"weight": w}, f[0], c), None,
+     30.0),
+    ("circle", lambda m, f, w, c, y, k: m.circle_logits({"weight": w}, f[0], c), None, 256.0),
+    # the self pair is dropped by sim < 1, which turns on one rounding at
+    # unit norm: rows just inside and just outside it
+    ("contrastive_self_pairs_in", lambda m, f, w, c, y, k: m.contrastive_loss(f[0], y), 0.99,
+     None),
+    ("contrastive_self_pairs_out", lambda m, f, w, c, y, k: m.contrastive_loss(f[0], y), 1.01,
+     None),
+    ("cluster", lambda m, f, w, c, y, k: m.cluster_loss(f[0], k), None, None),
+    ("range", lambda m, f, w, c, y, k: m.range_loss(f[0], k), None, None),
+    ("hetero_l2", lambda m, f, w, c, y, k: m.hetero_center_loss(f[0], f[1], k, "l2"), None, None),
+    ("hetero_l1", lambda m, f, w, c, y, k: m.hetero_center_loss(f[0], f[1], k, "l1"), None, None),
+    ("hetero_cos", lambda m, f, w, c, y, k: m.hetero_center_loss(f[0], f[1], k, "cos"), None,
+     None),
+    ("multi_modal_margin", lambda m, f, w, c, y, k: m.multi_modal_margin_loss(f[0], f[1], f[2], k),
+     None, None),
+]
+
+
+def clipreid_loss(torch, model, imgs, cams, pids, text_all, margin, mark=lambda: None):
+    """The CLIP-ReID loss this script trains with (composed here from the
+    port's pieces, as the CPU tests compose it): cross entropy on both
+    scores, triplet on the three features, image-to-text cross entropy
+    against every class's text features ``text_all``, and SupCon both ways
+    between the batch's text features (through the prompt learner and the
+    text tower) and the projected image features. ``mark()`` is called
+    after the image forward and after the text forward (stage timing)."""
+    from signal_tpu_torch.losses import cross_entropy, i2t_cross_entropy, supcon_loss, \
+        triplet_loss
+    from signal_tpu_torch.models import clipreid as cr
+
+    scores, feats, proj = cr.clipreid_forward_train(model, imgs, cams)
+    mark()
+    text_b = cr.clipreid_text_features(model, pids)
+    mark()
+    return (sum(cross_entropy(s, pids) for s in scores)
+            + sum(triplet_loss(f, pids, margin)[0] for f in feats)
+            + i2t_cross_entropy(proj, text_all, pids)
+            + supcon_loss(text_b, proj, pids, pids) + supcon_loss(proj, text_b, pids, pids))
+
+
+def profile_by_kind(torch, fn, iters: int = 3) -> dict:
+    """``fn()`` ``iters`` times under ``torch.profiler`` (after a warm-up
+    call) → ms per call by the host clock, the device's busy ms per call
+    in all and by kind (``scripts/profile_torch_train.kind_of``), its idle
+    share over the window, launches per call."""
+    from torch.autograd import DeviceType
+
+    if str(REPO / "scripts") not in sys.path:
+        sys.path.insert(0, str(REPO / "scripts"))
+    from profile_torch_train import kind_of
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    # device events only; the optimizer's step annotation spans its kernels
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and not e.key.startswith("Optimizer.")]
+    by_kind = {}
+    for e in events:
+        kind = kind_of(e.key)
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3 / iters
+    busy = sum(by_kind.values())
+    return {"window_ms_per_call": window_ms / iters, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy * iters / window_ms,
+            "launches_per_call": sum(e.count for e in events) / iters,
+            "ms_by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1]))}
+
+
+def check_clipreid(torch, report):
+    """Phase 16: CLIP-ReID at full width (random weights from SOLVER.SEED,
+    bf16, the flagship config's 256×128 input and SIE, RGBNT201's 171
+    classes, the tokenizer on the port's vocabulary). Eval
+    (``clipreid_forward_eval`` at B = 128, NECK_FEAT before and after) and
+    one train step at B = 64 (PK 8 × 8; the loss of :func:`clipreid_loss`,
+    Adam): the kernel path against the plain-attention path as phases 4
+    and 6 hold them, then the paths as configured, driven with the counts
+    zeroed before and read after: ms (host clock and device time), peak
+    memory, launches (12 a forward, 24 + 12 a step), and eval's MFU
+    (``utils/flops.cost_analysis`` of the products and the convolution,
+    plus the attention kernel's 4·B·L²·D a block, which no counter sees);
+    each path's device time by kind (:func:`profile_by_kind`) and the
+    step's by stage. The text features of all 171 classes
+    (ms, finite, causal); the metric losses on the card against the CPU;
+    a CLIP archive with both halves imported. → the driven launches."""
+    import torch.nn.functional as F
+
+    from signal_tpu_torch import losses_metric as lm
+    from signal_tpu_torch.config import load_config
+    from signal_tpu_torch.data.augment import normalize_images
+    from signal_tpu_torch.models import clipreid as cr
+    from signal_tpu_torch.models.clip_loader import load_clip_into_clipreid
+    from signal_tpu_torch.models.text_encoder import prompt_forward, text_forward
+    from signal_tpu_torch.models.tokenizer import ClipTokenizer
+    from signal_tpu_torch.ops import flash_attention as fa
+    from signal_tpu_torch.ops.attention import true_fp32
+    from signal_tpu_torch.utils.flops import cost_analysis, peak_flops_per_chip
+
+    t_phase = time.perf_counter()
+    cfg = load_config(str(REPO / "configs/RGBNT201/Signal.yml"))
+    C, B_eval, B, K = 171, cfg.TEST.IMS_PER_BATCH, cfg.SOLVER.IMS_PER_BATCH, \
+        cfg.DATALOADER.NUM_INSTANCE
+    spec = cr.ClipReIDSpec.from_config(cfg, num_classes=C, camera_num=4)
+    tok = ClipTokenizer()
+    if not ((B_eval, B, K) == (128, 64, 8) and tok.has_merges and spec.use_flash
+            and spec.compute_dtype == "bfloat16" and spec.sie_camera
+            and (spec.width, spec.layers, spec.num_heads, spec.proj_dim, spec.h, spec.w,
+                 spec.text_width, spec.text_layers) == (768, 12, 12, 512, 16, 8, 512, 12)):
+        raise SystemExit(f"phase 16's configuration: {spec}, batches {(B_eval, B, K)}")
+    model = cr.ClipReID(spec, gen=torch.Generator().manual_seed(cfg.SOLVER.SEED),
+                        tokenizer=tok).to("cuda")
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    H, W = cfg.INPUT.SIZE_TRAIN
+
+    def images(n):
+        u8 = torch.randint(0, 256, (n, 3, H, W), dtype=torch.uint8, device="cuda", generator=gen)
+        return normalize_images({"RGB": u8}, cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD)["RGB"]
+
+    imgs_e, cams_e = images(B_eval), torch.randint(0, 4, (B_eval,), device="cuda", generator=gen)
+    imgs, cams = images(B), torch.randint(0, 4, (B,), device="cuda", generator=gen)
+    pids = torch.randperm(C, device="cuda", generator=gen)[:B // K].repeat_interleave(K)
+    margin = None if cfg.MODEL.NO_MARGIN else cfg.SOLVER.MARGIN
+    tokens = spec.h * spec.w + 1
+    out = {"params_m": sum(p.numel() for p in model.parameters()) / 1e6, "tokens": tokens,
+           "batch_eval": B_eval, "batch_train": B}
+    cos = F.cosine_similarity
+
+    # eval: the kernel path against the plain path (phase 4's tolerances)
+    def features(dtype, use_flash, neck):
+        model.spec = dataclasses.replace(spec, compute_dtype=dtype, use_flash=use_flash,
+                                         neck_feat=neck)
+        before = fa.attention_fwd_cuda.launches
+        with torch.inference_mode(), true_fp32():
+            f = cr.clipreid_forward_eval(model, imgs_e, cams_e)
+        torch.cuda.synchronize()
+        launched = fa.attention_fwd_cuda.launches - before
+        if launched != (spec.layers if use_flash else 0):
+            raise SystemExit(f"CLIP-ReID eval {dtype} use_flash={use_flash}: {launched} "
+                             f"kernel launches")
+        if tuple(f.shape) != (B_eval, spec.width + spec.proj_dim) or f.dtype != torch.float32 \
+                or not bool(torch.isfinite(f).all()):
+            raise SystemExit(f"CLIP-ReID eval {dtype} {neck}: features {tuple(f.shape)} "
+                             f"{f.dtype}, finite {bool(torch.isfinite(f).all())}")
+        return f
+
+    for neck in ("before", "after"):
+        f_k, f_p = features("float32", True, neck), features("float32", False, neck)
+        out[f"eval_fp32_{neck}_max_abs_err"] = (f_k - f_p).abs().max().item()
+        if not torch.allclose(f_k, f_p, atol=1e-3, rtol=1e-3):
+            raise SystemExit(f"CLIP-ReID fp32 features ({neck}): kernel vs plain path max abs "
+                             f"err {out[f'eval_fp32_{neck}_max_abs_err']} (atol 1e-3 + rtol 1e-3)")
+        f_k, f_p = features("bfloat16", True, neck), features("bfloat16", False, neck)
+        out[f"eval_bf16_{neck}_cos_min"] = cos(f_k, f_p, dim=-1).min().item()
+        if out[f"eval_bf16_{neck}_cos_min"] <= 0.99:
+            raise SystemExit(f"CLIP-ReID bf16 features ({neck}): kernel vs plain path cosine "
+                             f"{out[f'eval_bf16_{neck}_cos_min']} (> 0.99)")
+    del f_k, f_p
+
+    # the text tower: every class's features, and causality in fp32
+    model.spec = spec
+    labels = torch.arange(C, device="cuda")
+
+    def text_all():
+        with torch.inference_mode():
+            return cr.clipreid_text_features(model, labels)
+
+    t_all = text_all()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        t_all = text_all()
+    torch.cuda.synchronize()
+    out["text_ms_171_classes"] = (time.perf_counter() - t0) / 3 * 1e3
+    if tuple(t_all.shape) != (C, spec.proj_dim) or not bool(torch.isfinite(t_all).all()):
+        raise SystemExit(f"CLIP-ReID text features {tuple(t_all.shape)}, finite "
+                         f"{bool(torch.isfinite(t_all).all())}")
+    with torch.inference_mode(), true_fp32():
+        prompts, tokenized = prompt_forward(model.prompt_learner, labels)
+        eot = int(tokenized[0].argmax())
+        kick = 10.0 * torch.randn(spec.text_width, device="cuda", generator=gen)
+        later, earlier = prompts.clone(), prompts.clone()
+        later[:, eot + 1] += kick
+        earlier[:, eot - 1] += kick
+        base, after_eot, before_eot = (
+            text_forward(model.text, p, tokenized, num_heads=cr.TEXT_HEADS,
+                         compute_dtype=torch.float32) for p in (prompts, later, earlier))
+    out["text_fp32_after_eot_max_abs_change"] = (after_eot - base).abs().max().item()
+    out["text_fp32_before_eot_max_abs_change"] = (before_eot - base).abs().max().item()
+    if out["text_fp32_after_eot_max_abs_change"] > 1e-5 or \
+            out["text_fp32_before_eot_max_abs_change"] < 1e-3:
+        raise SystemExit(f"CLIP-ReID text tower not causal: {out}")
+    del prompts, later, earlier, base, after_eot, before_eot
+
+    # one train step: the kernel path against the plain path (phase 6's
+    # tolerances), the backward kernel against its plain version in bf16
+    params = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+
+    def loss_and_grads(dtype, use_flash, plain_bwd=False):
+        kernel = fa.attention_bwd_cuda
+        model.load_state_dict(state0)             # the BNNecks' statistics move
+        model.spec = dataclasses.replace(spec, compute_dtype=dtype, use_flash=use_flash)
+        text = text_all().clone()
+        fwd, bwd = fa.attention_fwd_cuda.launches, kernel.launches
+        if plain_bwd:
+            fa.attention_bwd_cuda = fa.flash_attention_bwd_reference
+        try:
+            with true_fp32():
+                loss = clipreid_loss(torch, model, imgs, cams, pids, text, margin)
+                grads = torch.autograd.grad(loss, [p for _, p in params], allow_unused=True)
+            torch.cuda.synchronize()
+        finally:
+            fa.attention_bwd_cuda = kernel
+        launched = (fa.attention_fwd_cuda.launches - fwd, kernel.launches - bwd)
+        want = (2 * spec.layers, 0 if plain_bwd else spec.layers) if use_flash else (0, 0)
+        if launched != want:
+            raise SystemExit(f"CLIP-ReID train {dtype} use_flash={use_flash}: (fwd, bwd) "
+                             f"launches {launched}, want {want}")
+        return loss.item(), {n: (torch.zeros_like(p) if g is None else g)
+                             for (n, p), g in zip(params, grads)}
+
+    loss_k, g_k = loss_and_grads("float32", True)
+    loss_p, g32 = loss_and_grads("float32", False)
+    worst, zero = hold_fp32(torch, g_k, g32, "phase 16")
+    out.update(train_fp32_loss_kernel=loss_k, train_fp32_loss_plain=loss_p,
+               train_fp32_grad_max_rel_l2=worst, n_grads=len(g32), zero_grads=zero)
+    if not math.isclose(loss_k, loss_p, rel_tol=1e-5):
+        raise SystemExit(f"CLIP-ReID fp32 loss: kernel path {loss_k} vs plain path {loss_p}")
+    del g_k
+    names = [n for n in g32 if n not in zero]
+    loss_k, g_k = loss_and_grads("bfloat16", True)
+    loss_p, g_p = loss_and_grads("bfloat16", False)
+    step_cos = cosines(torch, g_k, g_p, names)
+    vs32 = cosines(torch, g_k, g32, names)
+    del g_p, g32
+    _, g_b = loss_and_grads("bfloat16", True, plain_bwd=True)
+    bwd_cos = cosines(torch, g_k, g_b, names)
+    del g_k, g_b
+    low = {k: min(c, key=c.get) for k, c in (("step", step_cos), ("bwd", bwd_cos),
+                                             ("k32", vs32))}
+    out.update(train_bf16_loss_kernel=loss_k, train_bf16_loss_plain=loss_p,
+               bwd_kernel_vs_plain_grad_cos_min=bwd_cos[low["bwd"]],
+               bwd_kernel_vs_plain_grad_cos_min_tensor=low["bwd"],
+               step_kernel_vs_plain_path_grad_cos_min=step_cos[low["step"]],
+               step_kernel_vs_plain_path_grad_cos_min_tensor=low["step"],
+               kernel_path_vs_fp32_grad_cos_min=vs32[low["k32"]])
+    if not (math.isfinite(loss_k) and bwd_cos[low["bwd"]] > 0.99):
+        raise SystemExit(f"CLIP-ReID bf16 step: the backward kernel disagrees with its plain "
+                         f"version: {out}")
+    model.load_state_dict(state0)
+    model.spec = spec
+    log(f"[clipreid] kernel vs plain: {json.dumps(out)}")
+
+    # the paths as configured (bf16, kernels): eval, then the train step
+    driven = {"attention_fwd": 0, "attention_bwd": 0}
+
+    def evaluate(neck):
+        model.spec = dataclasses.replace(spec, neck_feat=neck)
+        with torch.inference_mode():
+            return cr.clipreid_forward_eval(model, imgs_e, cams_e)
+
+    peak_flops = peak_flops_per_chip(torch.cuda.get_device_name(0))
+    attn_flops = 4 * B_eval * tokens * tokens * spec.width * spec.layers
+    for neck in ("before", "after"):
+        evaluate(neck)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.attention_fwd_cuda.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(3):
+            evaluate(neck)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        per_fwd = fa.attention_fwd_cuda.launches / 3
+        driven["attention_fwd"] += fa.attention_fwd_cuda.launches
+        flops = cost_analysis(evaluate, neck)["flops"]
+        busy = device_busy_ms(torch, lambda n: (evaluate(n),), (neck,), n=2)
+        out[f"eval_{neck}"] = {
+            "ms_per_batch": ms, "samples_per_s": B_eval / ms * 1e3, "device_busy_ms": busy,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches_per_forward": per_fwd, "counted_tflop": flops / 1e12,
+            "attention_kernel_tflop": attn_flops / 1e12,
+            "mfu_host": (flops + attn_flops) / (ms / 1e3) / peak_flops,
+            "mfu_device": (flops + attn_flops) / (busy / 1e3) / peak_flops}
+        if per_fwd != spec.layers:
+            raise SystemExit(f"CLIP-ReID eval ({neck}): {per_fwd} launches a forward, "
+                             f"want {spec.layers}")
+    model.spec = spec
+    optimizer = torch.optim.Adam([p for _, p in params], lr=5e-6, weight_decay=1e-4)
+    text = text_all().clone()              # once, without grad (CLIP-ReID's stage 2)
+
+    def step(imgs, pids):
+        optimizer.zero_grad(set_to_none=True)
+        loss = clipreid_loss(torch, model, imgs, cams, pids, text, margin)
+        loss.backward()
+        optimizer.step()
+        return (loss.detach(),)
+
+    timed = time_train_steps(torch, step, (imgs, pids), n=3)
+    driven["attention_fwd"] += round(timed["attention_fwd_launches_per_step"] * 3)
+    driven["attention_bwd"] += round(timed["attention_bwd_launches_per_step"] * 3)
+    out["train_step"] = dict(timed, device_busy_ms_per_step=device_busy_ms(
+        torch, step, (imgs, pids), n=1))
+    # where the time goes: each path under the profiler, by kind, and the
+    # step's stages by CUDA events (which count the device's waits too)
+    model.spec = dataclasses.replace(spec, neck_feat="before")
+    out["by_kind"] = {"eval": profile_by_kind(torch, lambda: evaluate("before")),
+                      "text": profile_by_kind(torch, text_all),
+                      "train": profile_by_kind(torch, lambda: step(imgs, pids))}
+    stages = dict.fromkeys(("image_forward_and_heads", "text_forward", "losses", "backward",
+                            "adam"), 0.0)
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        marks = iter(ev)
+        optimizer.zero_grad(set_to_none=True)
+        next(marks).record()
+        loss = clipreid_loss(torch, model, imgs, cams, pids, text, margin,
+                             mark=lambda: next(marks).record())
+        next(marks).record()
+        loss.backward()
+        next(marks).record()
+        optimizer.step()
+        next(marks).record()
+        torch.cuda.synchronize()
+        for i, name in enumerate(stages):
+            stages[name] += ev[i].elapsed_time(ev[i + 1]) / 3
+    out["train_step"]["stage_ms"] = stages
+    if (timed["attention_fwd_launches_per_step"], timed["attention_bwd_launches_per_step"]) \
+            != (2 * spec.layers, spec.layers) or not all(math.isfinite(x)
+                                                         for x in timed["losses"]):
+        raise SystemExit(f"CLIP-ReID train step: {out['train_step']}")
+    log(f"[clipreid] eval and train step bf16: "
+        f"{json.dumps({k: out[k] for k in ('eval_before', 'eval_after', 'train_step')})}")
+    log(f"[clipreid] device time by kind: {json.dumps(out['by_kind'])}")
+    del optimizer
+
+    # the metric losses on the card against the CPU, fp32
+    rows = {}
+    for D in (768, 512):
+        g = torch.Generator().manual_seed(D)
+        feats = torch.randn(3, B, D, generator=g)
+        weight = torch.randn(C, D, generator=g)
+        clabels = torch.randint(0, C, (B,), generator=g)
+        pk = torch.arange(B // K).repeat_interleave(K)
+        for name, fn, norm, s in METRIC_LOSSES:
+            f = feats if norm is None else norm * F.normalize(feats, dim=-1)
+            got, want = [], []
+            for dev, store in (("cuda", got), ("cpu", want)):
+                xs = [t.detach().to(dev).requires_grad_(True) for t in (f, weight)]
+                with true_fp32():
+                    o = fn(lm, xs[0], xs[1], clabels.to(dev), pk.to(dev), K)
+                    o = o if isinstance(o, tuple) else (o,)
+                    cot = [torch.randn(t.shape, generator=torch.Generator().manual_seed(1))
+                           .to(dev) for t in o]
+                    grads = torch.autograd.grad(sum((a * c).sum() for a, c in zip(o, cot)), xs,
+                                                allow_unused=True)
+                store += [t.detach().cpu() for t in o]
+                store += [torch.zeros_like(x).cpu() if gr is None else gr.cpu()
+                          for x, gr in zip(xs, grads)]
+            atol = 1e-6 if s is None else 1e-6 + s * 2.0 ** -22
+            err = max((a - b).abs().max().item() for a, b in zip(got, want))
+            ok = all(torch.allclose(a, b, rtol=1e-5, atol=atol) for a, b in zip(got, want))
+            rows[f"{name}_d{D}"] = {"max_abs_err": err, "atol": atol, "rtol": 1e-5}
+            if not ok:
+                raise SystemExit(f"metric loss {name} at D {D}: the card against the CPU "
+                                 f"max abs err {err} (rtol 1e-5 + atol {atol})")
+    out["metric_losses"] = rows
+    log(f"[clipreid] metric losses, card vs CPU (fp32, B {B}, C {C}): "
+        f"largest max abs err {max(r['max_abs_err'] for r in rows.values())} over "
+        f"{len(rows)} cases")
+
+    # a CLIP archive with both halves at their published shapes
+    work = REPO / "build" / "chip_smoke_clipreid"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    src = write_clip_archive(torch, work / "ViT-B-16.pt", text=True)
+    load_clip_into_clipreid(model, str(work / "ViT-B-16.pt"), tokenizer=tok)
+    from signal_tpu_torch.models.vit import resize_pos_embed
+
+    bad = [k for k, v in model.base.state_dict().items()
+           if not torch.equal(v.cpu(), resize_pos_embed(src[f"visual.{k}"].float(), spec.h, spec.w)
+                              if k == "positional_embedding" else src[f"visual.{k}"].float())]
+    bad += [k for k, v in model.text.state_dict().items() if not torch.equal(v.cpu(),
+                                                                             src[k].float())]
+    emb = model.text.token_embedding.weight[model.prompt_learner.tokenized]
+    if bad or not torch.equal(model.prompt_learner.token_prefix, emb[:5]):
+        raise SystemExit(f"the CLIP import differs from the archive: {bad[:5]}")
+    out["clip_import"] = {"archive_mb": (work / "ViT-B-16.pt").stat().st_size / 2 ** 20,
+                          "tensors": len(src), "seconds": time.perf_counter() - t0}
+    shutil.rmtree(work)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[clipreid] CLIP import: {json.dumps(out['clip_import'])}; phase 16 in "
+        f"{out['seconds']:.1f} s")
+    report["clipreid"] = out
+    del model
+    torch.cuda.empty_cache()
+    return driven
+
+
 def run_main_path(torch, report):
     """Phase 5: the test CLI end to end on the synthetic config."""
     from signal_tpu_torch.cli import test_main
@@ -2002,6 +2453,7 @@ def main() -> int:
     variant_launches = check_variants(torch, report)
     backbone_launches = check_backbones(torch, report)
     backbone_e2e = run_backbone_entry_points(torch, report)
+    clipreid_launches = check_clipreid(torch, report)
 
     def entry(kernel, source, replaces, rows, launches):
         bf16, fp32 = rows["main-bf16"], rows["main-fp32"]
@@ -2034,8 +2486,11 @@ def main() -> int:
     fwd["launches_backbones_e2e"] = backbone_e2e["attention_fwd"]
     bwd_entry["launches_backbones"] = backbone_launches["attention_bwd"]
     bwd_entry["launches_backbones_e2e"] = backbone_e2e["attention_bwd"]
+    # phase 16: CLIP-ReID's driven eval and train step, and its shapes
+    fwd["launches_clipreid"] = clipreid_launches["attention_fwd"]
+    bwd_entry["launches_clipreid"] = clipreid_launches["attention_bwd"]
     for kernel_rows, entry_ in ((rows, fwd), (bwd, bwd_entry)):
-        for n in [n for n in kernel_rows if n.startswith("d384")]:
+        for n in [n for n in kernel_rows if n.startswith(("d384", "clipreid"))]:
             tag = n.removesuffix("-bf16").replace("-", "_")
             for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
                         "tflops", "shape"):

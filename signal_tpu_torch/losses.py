@@ -9,6 +9,8 @@ Behavioral mirrors of `layers/{make_loss,triplet_loss,softmax_loss}.py`
 * TripletLoss: batch-hard mining over the true-fp32 Euclidean distance
   matrix (masked max/min); soft margin (softplus) when NO_MARGIN, else the
   margin ranking loss;
+* SupConLoss and CLIP-ReID's image-to-text cross entropy: the
+  normalised features' product in true fp32;
 * CenterLoss: the clamped squared distance of each sample to its own
   class centre, summed and divided by the batch size. The centres are not
   a model parameter: the train step owns them and moves them by plain SGD
@@ -24,6 +26,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from signal_tpu_torch.ops.attention import true_fp32
 from signal_tpu_torch.ops.distmat import euclidean_distmat
 
 
@@ -73,6 +76,34 @@ def center_loss(centers: torch.Tensor, feats: torch.Tensor, labels: torch.Tensor
          - 2.0 * f @ centers.t())
     mask = F.one_hot(labels, centers.shape[0]).float()
     return (d.clamp(1e-12, 1e12) * mask).sum() / f.shape[0]
+
+
+def _unit_rows(x: torch.Tensor) -> torch.Tensor:
+    return x / (x.norm(dim=1, keepdim=True) + 1e-12)
+
+
+def supcon_loss(text_feats: torch.Tensor, image_feats: torch.Tensor, t_labels: torch.Tensor,
+                i_labels: torch.Tensor, temperature: float = 1.0) -> torch.Tensor:
+    """Supervised contrastive loss between modalities (the reference's
+    `layers/supcontrast.py`, CLIP-ReID's prompt training): for each text
+    anchor the positives are the images of its identity. The normalised
+    product is true fp32."""
+    with true_fp32():
+        logits = _unit_rows(text_feats) @ _unit_rows(image_feats).T / temperature
+    pos = (t_labels[:, None] == i_labels[None, :]).float()
+    logp = torch.log_softmax(logits, dim=1)
+    per_anchor = (pos * logp).sum(dim=1) / pos.sum(dim=1).clamp(min=1.0)
+    return -per_anchor.mean()
+
+
+def i2t_cross_entropy(image_feats: torch.Tensor, text_class_feats: torch.Tensor,
+                      labels: torch.Tensor, logit_scale: float = 100.0) -> torch.Tensor:
+    """Image-to-text classification over per-class text features
+    (CLIP-ReID stage 2's ``xent(image_logits, target)``); the normalised
+    product is true fp32."""
+    with true_fp32():
+        logits = logit_scale * (_unit_rows(image_feats) @ _unit_rows(text_class_feats).T)
+    return cross_entropy(logits, labels)
 
 
 def make_loss(cfg, num_classes: int) -> Callable:

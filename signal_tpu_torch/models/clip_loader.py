@@ -19,6 +19,10 @@ fresh.
 
 Unlike the JAX package, which skips a path that does not exist, the port
 raises: a mistyped path must not train from random weights.
+
+CLIP-ReID (`models/clipreid.py`) takes both halves of the archive
+(:func:`load_clip_into_clipreid`): the visual tower as above, the text
+tower by CLIP's own names.
 """
 
 from __future__ import annotations
@@ -100,4 +104,29 @@ def load_clip_into_model(model, path: str):
     tower = model.clip_vision_encoder.base
     sd = clip_visual_to_tower(_torch_state_dict(path), tower, model.spec.h, model.spec.w)
     tower.load_state_dict(sd, strict=True)
+    return model
+
+
+def load_clip_into_clipreid(model, path: str, tokenizer=None):
+    """Both halves of the CLIP archive at ``path`` into a port ``ClipReID``:
+    ``visual.*`` into ``model.base`` (:func:`clip_visual_to_tower`, the
+    pos embed resized to the spec's grid) and the text tensors into
+    ``model.text`` (``text_encoder.load_clip_text_params``: the archive's
+    first ``text_layers`` blocks), both with ``strict=True``; the prompt
+    learner's template buffers are then taken from the imported token
+    embedding, as the reference builds its PromptLearner from the loaded
+    CLIP. Raises ``ValueError`` before loading anything when ``tokenizer``
+    (default: the port's vocabulary) is the byte-fallback one. → ``model``."""
+    from signal_tpu_torch.models.text_encoder import load_clip_text_params
+    from signal_tpu_torch.models.tokenizer import ClipTokenizer
+
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"CLIP archive {path!r} does not exist")
+    tokenizer = tokenizer if tokenizer is not None else ClipTokenizer()
+    sd = _torch_state_dict(path)
+    text = load_clip_text_params(sd, len(model.text.transformer.resblocks), tokenizer)
+    visual = clip_visual_to_tower(sd, model.base, model.spec.h, model.spec.w)
+    model.base.load_state_dict(visual, strict=True)
+    model.text.load_state_dict(text, strict=True)
+    model.prompt_learner.set_template(model.text.token_embedding.weight, tokenizer)
     return model

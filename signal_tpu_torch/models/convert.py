@@ -15,7 +15,8 @@ export refuses, map onto ``base.`` under their upstream projects' names
 ResNet, torchreid for OSNet; the CNNs' BatchNorm statistics from
 ``bn_state["base"]``), the names the port's importers load through.
 ``load_reference_checkpoint`` loads a reference-named ``.pth`` through the
-same keys.
+same keys. ``clipreid_state_dict_from_jax`` carries a JAX CLIP-ReID tree
+into the port's ``ClipReID`` (`models/clipreid.py`).
 """
 
 from __future__ import annotations
@@ -185,10 +186,15 @@ def state_dict_from_jax(params: Dict[str, Any], bn_state: Dict[str, Any],
 
 def _clip(out: Dict[str, np.ndarray], params) -> None:
     """The CLIP tower and its SIE table under the reference's names."""
+    _clip_tower(out, "clip_vision_encoder.base.", params["base"],
+                params.get("lora", {}).get("blocks", {}), params.get("prompt"))
+    if "cv_embed" in params:
+        out["clip_vision_encoder.cv_embed"] = _a(params["cv_embed"])[:, None, :]
+
+
+def _clip_tower(out, pre: str, base, lora=None, prompt=None) -> None:
+    """A CLIP image tower (``init_vit_params``' tree) under CLIP's names."""
     a = _a
-    base = params["base"]
-    blocks = base["blocks"]
-    pre = "clip_vision_encoder.base."
     out[pre + "conv1.weight"] = _hwio_to_oihw(a(base["conv1"]["kernel"]))
     out[pre + "class_embedding"] = a(base["class_embedding"])
     out[pre + "positional_embedding"] = a(base["positional_embedding"])
@@ -196,8 +202,14 @@ def _clip(out: Dict[str, np.ndarray], params) -> None:
         out[pre + f"{ln}.weight"] = a(base[ln]["scale"])
         out[pre + f"{ln}.bias"] = a(base[ln]["bias"])
     out[pre + "proj"] = a(base["proj"])
-    lora = params.get("lora", {}).get("blocks", {})
-    prompt = params.get("prompt")
+    _clip_blocks(out, pre, base["blocks"], lora or {}, prompt)
+
+
+def _clip_blocks(out, pre: str, blocks, lora, prompt) -> None:
+    """Stacked ``[layers, …]`` CLIP blocks (the image tower's, with its
+    variants, or the text tower's) → one set per block under
+    ``{pre}transformer.resblocks.{i}.``, kernels as ``[out, in]``."""
+    a = _a
     for i in range(a(blocks["ln_1"]["scale"]).shape[0]):
         b = pre + f"transformer.resblocks.{i}."
         for ln in ("ln_1", "ln_2"):
@@ -235,8 +247,36 @@ def _clip(out: Dict[str, np.ndarray], params) -> None:
                 out[b + f"{tname}.0.bias"] = a(m["fc1_bias"][i])
                 out[b + f"{tname}.3.weight"] = a(m["fc2_kernel"][i]).T
                 out[b + f"{tname}.3.bias"] = a(m["fc2_bias"][i])
+
+
+def clipreid_state_dict_from_jax(params: Dict[str, Any],
+                                 bn_state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX CLIP-ReID ``(params, bn_state)`` (`init_clipreid_params`' tree,
+    numpy leaves) → {port ``ClipReID`` key: tensor}: the image tower under
+    ``base.``, the text tower under ``text.`` (CLIP's names, one set per
+    block), SIE, the classifiers as ``[C, in]``, the BNNecks with their
+    statistics, and the prompt learner's ``cls_ctx`` and buffers (the
+    template's ids as int64)."""
+    out: Dict[str, np.ndarray] = {}
+    _clip_tower(out, "base.", params["base"])
+    text = params["text"]
+    out["text.token_embedding.weight"] = _a(text["token_embedding"])
+    out["text.positional_embedding"] = _a(text["positional_embedding"])
+    _clip_blocks(out, "text.", text["blocks"], {}, None)
+    out["text.ln_final.weight"] = _a(text["ln_final"]["scale"])
+    out["text.ln_final.bias"] = _a(text["ln_final"]["bias"])
+    out["text.text_projection"] = _a(text["text_projection"])
     if "cv_embed" in params:
-        out["clip_vision_encoder.cv_embed"] = a(params["cv_embed"])[:, None, :]
+        out["cv_embed"] = _a(params["cv_embed"])
+    for name in ("classifier", "classifier_proj"):
+        out[f"{name}.weight"] = _a(params[name]["kernel"]).T
+    for name in ("bottleneck", "bottleneck_proj"):
+        _bn(out, name, params[name], bn_state[name])
+    pl = params["prompt_learner"]
+    for name in ("cls_ctx", "token_prefix", "token_suffix"):
+        out[f"prompt_learner.{name}"] = _a(pl[name])
+    out["prompt_learner.tokenized"] = np.asarray(pl["tokenized"], dtype=np.int64)
+    return {k: torch.tensor(v) for k, v in out.items()}
 
 
 def _heads(out: Dict[str, np.ndarray], params, bn_state) -> None:

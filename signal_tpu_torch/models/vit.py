@@ -328,10 +328,17 @@ def vit_forward(vit: VisionTransformer, images: torch.Tensor, cv_emb=None, *,
                 num_heads: int = 12, compute_dtype=torch.bfloat16, use_flash: bool = False,
                 stride: int | None = None, remat: bool = False,
                 remat_policy: str = "full", moe_topk: int = 1,
-                moe_capacity: float = 1.25) -> Tuple[torch.Tensor, ...]:
+                moe_capacity: float = 1.25,
+                return_intermediate: bool = False) -> Tuple[torch.Tensor, ...]:
     """images [B, 3, H, W] → (patch tokens [B, L, out], cls [B, out]), fp32;
     an MoE tower (MODEL.MOE_EXPERTS > 1) adds the mean load-balance aux
     over its layers: (patches, cls, moe_aux).
+
+    ``return_intermediate``: CLIP-ReID's triple of full sequences, CLS
+    first, instead (`signal_tpu/models/vit.py:229-231`): (the stream after
+    ``layers − 1`` blocks [B, 1+L, width] and the ln_post output, both in
+    the compute dtype, and the projection [B, 1+L, out] fp32), plus the aux
+    on an MoE tower.
 
     ``cv_emb`` [B, width]: SIE camera embedding, added to the CLS token
     only. ``use_flash``: each block's attention goes through the fused
@@ -369,6 +376,8 @@ def vit_forward(vit: VisionTransformer, images: torch.Tensor, cv_emb=None, *,
     blocks = vit.transformer.resblocks
     auxs = []
     for i, blk in enumerate(blocks):
+        if i == len(blocks) - 1:
+            x_last = x
         fn = functools.partial(_block, blk, num_heads=num_heads, compute_dtype=compute_dtype,
                                use_flash=use_flash, moe_topk=moe_topk,
                                moe_capacity=moe_capacity)
@@ -388,9 +397,10 @@ def vit_forward(vit: VisionTransformer, images: torch.Tensor, cv_emb=None, *,
             x = out
     x_post = layer_norm(vit.ln_post, x)
     x_proj = matmul_f32(x_post.to(compute_dtype), vit.proj.to(compute_dtype))
-    if auxs:
-        return x_proj[:, 1:], x_proj[:, 0], torch.stack(auxs).sum() / len(blocks)
-    return x_proj[:, 1:], x_proj[:, 0]
+    aux = (torch.stack(auxs).sum() / len(blocks),) if auxs else ()
+    if return_intermediate:
+        return (x_last, x_post, x_proj, *aux)
+    return (x_proj[:, 1:], x_proj[:, 0], *aux)
 
 
 def _bilinear_resize_no_aa(grid: torch.Tensor, h_new: int, w_new: int) -> torch.Tensor:

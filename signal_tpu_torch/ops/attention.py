@@ -114,12 +114,15 @@ def linear(weight: torch.Tensor, bias, x: torch.Tensor,
     return y if out_dtype is None else y.to(out_dtype)
 
 
-def _attention_core(q, k, v, num_heads: int, compute_dtype=torch.bfloat16, scale=None):
+def _attention_core(q, k, v, num_heads: int, compute_dtype=torch.bfloat16, mask=None,
+                    scale=None):
     """Eager softmax attention. q [B, Lq, D], k/v [B, Lk, D] → fp32
     [B, Lq, D]. q is scaled BEFORE the cast to the compute dtype
     (`signal_tpu/ops/attention.py:83`); the kernel path scales after the
-    dot instead (`ops/flash_attention.py`). ``scale``: the qk scale
-    (default 1/√head_dim)."""
+    dot instead (`ops/flash_attention.py`). ``mask``: an additive [Lq, Lk]
+    bias added to the fp32 logits before the softmax (CLIP's causal mask:
+    −inf above the diagonal). ``scale``: the qk scale (default
+    1/√head_dim)."""
     B, Lq, D = q.shape
     Lk = k.shape[1]
     hd = D // num_heads
@@ -132,6 +135,8 @@ def _attention_core(q, k, v, num_heads: int, compute_dtype=torch.bfloat16, scale
     # the exact value of a compute-dtype product with fp32 accumulation
     qs = (q * scale).to(compute_dtype).float()
     logits = qs @ k.to(compute_dtype).float().transpose(-1, -2)
+    if mask is not None:
+        logits = logits + mask.float()[None, None]
     probs = torch.softmax(logits, dim=-1)
     out = probs.to(compute_dtype).float() @ v.to(compute_dtype).float()
     return out.transpose(1, 2).reshape(B, Lq, D)
@@ -140,14 +145,14 @@ def _attention_core(q, k, v, num_heads: int, compute_dtype=torch.bfloat16, scale
 def attention(qkv_weight: torch.Tensor, qkv_bias: torch.Tensor, out_weight: torch.Tensor,
               out_bias: torch.Tensor, q_in: torch.Tensor, kv_in: torch.Tensor | None = None,
               *, num_heads: int, compute_dtype=torch.bfloat16, use_flash: bool = False,
-              scale=None) -> torch.Tensor:
+              mask=None, scale=None) -> torch.Tensor:
     """Multi-head (self or cross) attention from a packed ``[3D, D]``
     q|k|v projection and a ``[D, D]`` output projection (torch's
     ``[out, in]`` weights). The core goes through
     :func:`signal_tpu_torch.ops.flash_attention.flash_attention` (the CUDA
-    kernel on the card) only when ``use_flash`` and no ``scale`` override
-    is given, else the eager core: the JAX package's rule
-    (`signal_tpu/ops/attention.py:131-138`)."""
+    kernel on the card) only when ``use_flash`` and neither a ``mask`` nor
+    a ``scale`` override is given, else the eager core: the JAX package's
+    rule (`signal_tpu/ops/attention.py:131-138`)."""
     if kv_in is None:
         kv_in = q_in
     wq, wk, wv = qkv_weight.chunk(3, dim=0)
@@ -155,25 +160,26 @@ def attention(qkv_weight: torch.Tensor, qkv_bias: torch.Tensor, out_weight: torc
     q = linear(wq, bq, q_in, compute_dtype)
     k = linear(wk, bk, kv_in, compute_dtype)
     v = linear(wv, bv, kv_in, compute_dtype)
-    if use_flash and scale is None:
+    if use_flash and mask is None and scale is None:
         from signal_tpu_torch.ops.flash_attention import flash_attention
 
         out = flash_attention(q, k, v, num_heads=num_heads,
                               compute_dtype=compute_dtype)
     else:
-        out = _attention_core(q, k, v, num_heads, compute_dtype, scale=scale)
+        out = _attention_core(q, k, v, num_heads, compute_dtype, mask=mask, scale=scale)
     return linear(out_weight, out_bias, out, compute_dtype)
 
 
 def mha(attn: nn.Module, q_in: torch.Tensor, kv_in: torch.Tensor | None = None, *,
         num_heads: int, compute_dtype=torch.bfloat16, use_flash: bool = False,
-        scale=None) -> torch.Tensor:
+        mask=None, scale=None) -> torch.Tensor:
     """:func:`attention` over ``nn.MultiheadAttention``'s packed layout:
     ``in_proj_weight [3D, D]``, ``in_proj_bias [3D]``, ``out_proj.weight
     [D, D]``, ``out_proj.bias [D]``."""
     return attention(attn.in_proj_weight, attn.in_proj_bias, attn.out_proj.weight,
                      attn.out_proj.bias, q_in, kv_in, num_heads=num_heads,
-                     compute_dtype=compute_dtype, use_flash=use_flash, scale=scale)
+                     compute_dtype=compute_dtype, use_flash=use_flash, mask=mask,
+                     scale=scale)
 
 
 class MultiheadAttentionParams(nn.Module):

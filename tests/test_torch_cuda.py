@@ -48,6 +48,10 @@ def cuda_device():
     (4, 9, 9, 384, 6, torch.bfloat16),        # odd: 6 heads of 64
     (8, 129, 129, 384, 6, torch.bfloat16),    # deit_small's blocks: D 384, 6 heads
     (8, 129, 129, 384, 6, torch.float32),
+    (128, 129, 129, 768, 12, torch.bfloat16),  # CLIP-ReID's eval: one modality, B 128
+    (128, 129, 129, 768, 12, torch.float32),
+    (64, 129, 129, 768, 12, torch.bfloat16),  # and its train step, B 64
+    (64, 129, 129, 768, 12, torch.float32),
     (2, 17, 33, 256, 2, torch.float32),       # hd 128, ragged lengths
     (4, 3, 384, 512, 8, torch.bfloat16),      # keys past a register row: two passes
     (2, 17, 300, 256, 2, torch.bfloat16),     # the same at hd 128
@@ -106,6 +110,8 @@ def test_attention_fwd_kernel_refuses_a_graph(cuda_device):
     (4, 9, 9, 384, 6, torch.bfloat16),        # odd: 6 heads of 64
     (8, 129, 129, 384, 6, torch.bfloat16),    # deit_small's blocks: D 384, 6 heads
     (8, 129, 129, 384, 6, torch.float32),
+    (64, 129, 129, 768, 12, torch.bfloat16),  # CLIP-ReID's train step: one modality, B 64
+    (64, 129, 129, 768, 12, torch.float32),
     (2, 17, 33, 256, 2, torch.float32),       # hd 128, ragged lengths
     (2, 160, 160, 256, 2, torch.bfloat16),    # the longest the fused bf16 kernel takes
     (4, 211, 211, 768, 12, torch.bfloat16),   # STRIDE_SIZE 12: the long route
@@ -236,6 +242,35 @@ def test_linear_backward_runs_on_the_card(cuda_device):
     for a, b in ((gx, fx), (gw, fw)):
         cos = torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(), dim=0)
         assert cos > 0.999, cos
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, dict(atol=1e-5, rtol=1e-5)),
+                                       (torch.bfloat16, dict(atol=1e-2, rtol=0))])
+def test_masked_core_on_the_card_equals_the_cpu(cuda_device, dtype, tol):
+    """CLIP's causal text attention (the eager core with an additive mask)
+    on the card against the CPU, at the text tower's shape (77 tokens, 8
+    heads of 64); ``mha`` with ``use_flash`` and a mask launches no kernel.
+    fp32: summation order; bf16: one rounding of P apart."""
+    from signal_tpu_torch.models.text_encoder import causal_mask
+    from signal_tpu_torch.ops.attention import MultiheadAttentionParams, _attention_core, mha, \
+        true_fp32
+    from signal_tpu_torch.ops.flash_attention import attention_fwd_cuda
+
+    gen = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn(16, 77, 512, generator=gen) for _ in range(3))
+    want = _attention_core(q, k, v, 8, dtype, mask=causal_mask(77))
+    with true_fp32():
+        got = _attention_core(*(t.to(cuda_device) for t in (q, k, v)), 8, dtype,
+                              mask=causal_mask(77, device=cuda_device))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **tol)
+    attn = MultiheadAttentionParams(512)
+    attn.reset_parameters(gen)
+    before = attention_fwd_cuda.launches
+    with torch.no_grad():
+        out = mha(attn.to(cuda_device), q.to(cuda_device), num_heads=8, compute_dtype=dtype,
+                  use_flash=True, mask=causal_mask(77, device=cuda_device))
+    torch.cuda.synchronize()
+    assert attention_fwd_cuda.launches == before and bool(torch.isfinite(out).all())
 
 
 def _integer_features(seed, n, dim):
