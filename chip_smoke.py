@@ -185,9 +185,15 @@ def log(msg: str) -> None:
 
 # the bf16 kernels pad rows and the head dim to multiples of 16: every
 # length at or next to a tile edge, at head dims 8 and 24 (a zero-padded
-# contraction), 64 and 128; cross attention both ways (B = 2, 2 heads)
-EDGE_LENGTHS = [(n, n) for n in (1, 15, 16, 17, 129, 145)] + [
-    (1, 145), (145, 1), (17, 129), (129, 16), (15, 17)]
+# contraction), 64 and 128; cross attention both ways (B = 2, 2 heads).
+# The forward's one-pass kernel holds 64, 144, 224 or 256 keys of a row in
+# registers (143-145, 208-225, 255-256) and gives way to the two-pass
+# kernel past 256 (257); the backward's fused kernel takes up to 160
+# (159-161)
+EDGE_LENGTHS = [(n, n) for n in (1, 15, 16, 17, 129, 143, 144, 145, 159, 160, 161, 192, 193,
+                                 *range(208, 226), 255, 256, 257)] + [
+    (1, 145), (145, 1), (17, 129), (129, 16), (15, 17), (17, 256), (256, 17), (3, 257),
+    (257, 3)]
 EDGES = [(f"edge-{lq}x{lk}-hd{hd}", 2, lq, lk, 2 * hd, 2)
          for hd in (8, 24, 64, 128) for lq, lk in EDGE_LENGTHS]
 # past 160 tokens the bf16 backward takes its long route (a statistics
@@ -331,9 +337,15 @@ def check_attention(torch, report, peaks):
     """Phase 3: the attention kernel against its plain version."""
     import torch.nn.functional as F
 
-    from signal_tpu_torch.ops.flash_attention import attention_fwd_cuda, flash_attention_reference
+    from signal_tpu_torch.ops.flash_attention import (
+        FWD_ONE_PASS_MAX_KEYS,
+        attention_fwd_cuda,
+        flash_attention_reference,
+        fwd_route,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    long_before = attention_fwd_cuda.launches_long
     cases = [  # (name, B, Lq, Lk, D, H, dtype)
         ("main-bf16", 384, 129, 129, 768, 12, torch.bfloat16),
         ("main-fp32", 384, 129, 129, 768, 12, torch.float32),
@@ -342,7 +354,7 @@ def check_attention(torch, report, peaks):
         ("cross-fp32", 128, 3, 384, 512, 8, torch.float32),
         ("odd-bf16", 16, 9, 9, 384, 6, torch.bfloat16),
         ("odd-fp32", 16, 9, 9, 384, 6, torch.float32),
-        ("long-hd128-bf16", 8, 17, 300, 256, 2, torch.bfloat16),   # two passes over keys
+        ("long-hd128-bf16", 8, 17, 300, 256, 2, torch.bfloat16),   # past 256 keys: two passes
         # deit_small's eval and train shapes: D = 384, 6 heads of 64
         ("d384-eval-bf16", 384, 129, 129, 384, 6, torch.bfloat16),
         ("d384-train-bf16", 192, 129, 129, 384, 6, torch.bfloat16),
@@ -365,7 +377,15 @@ def check_attention(torch, report, peaks):
             tol, tol_text = BF16_ATOL, f"atol {BF16_ATOL}"
         ok = bool((err <= tol).all())
         row = {"shape": [B, Lq, Lk, D, H], "dtype": str(dt).split(".")[1],
-               "max_abs_err": err.max().item(), "tolerance": tol_text}
+               "max_abs_err": err.max().item(), "tolerance": tol_text,
+               "route": fwd_route(dt, Lk)}
+        if name == "len211-bf16":
+            # the one-pass kernel sums in one fixed order: a second launch
+            # gives the same bits
+            again = attention_fwd_cuda(q, k, v, H)
+            torch.cuda.synchronize()
+            row["repeat_bit_identical"] = torch.equal(got, again)
+            del again
         if name.startswith(("main", "train", "len", "d384", "clipreid", "tp", "pipe")):
             hd = D // H
             elt = q.element_size()
@@ -389,8 +409,17 @@ def check_attention(torch, report, peaks):
         if not ok:
             raise SystemExit(f"attention_fwd {name} disagrees with its plain version: "
                              f"max abs err {row['max_abs_err']} ({tol_text})")
+        if row.get("repeat_bit_identical") is False:
+            raise SystemExit(f"attention_fwd {name}: two launches differ")
         del q, k, v, got, want, err
     log_edges("attention_fwd", rows)
+    long_cases = sorted(n for n, r in rows.items() if r["route"] == "long")
+    report["attention_fwd_long_route"] = {
+        "cases": long_cases, "launches": attention_fwd_cuda.launches_long - long_before}
+    log(f"[kernel] attention_fwd two-pass route (past {FWD_ONE_PASS_MAX_KEYS} keys): "
+        f"{json.dumps(report['attention_fwd_long_route'])}")
+    if report["attention_fwd_long_route"]["launches"] != len(long_cases):
+        raise SystemExit("attention_fwd: the two-pass route's launches do not match its cases")
     report["attention"] = rows
     return rows
 
@@ -508,7 +537,7 @@ def check_build(torch, report):
             log(f"[build] {lib}: {short}: {row['registers']} registers, spill stores "
                 f"{row['spill_stores']} B, spill loads {row['spill_loads']} B, "
                 f"HMMA {row['hmma']}")
-            if "mma_kernel" in short and row["hmma"] == 0:
+            if ("mma_kernel" in short or "onepass_kernel" in short) and row["hmma"] == 0:
                 raise SystemExit(f"{short} has no tensor-core instruction")
     report["build"] = kernels
     log(f"[build] {sorted(libs)} in {report['build_s']:.1f} s")
@@ -2533,14 +2562,15 @@ def _gloo_rank(rank: int, init: str, work: str) -> None:
         n = u8.shape[0] // dp
         rows = slice(mesh.data_rank * n, (mesh.data_rank + 1) * n)
         attention_fwd_cuda.launches = attention_bwd_cuda.launches = 0
-        attention_bwd_cuda.launches_long = 0
+        attention_bwd_cuda.launches_long = attention_fwd_cuda.launches_long = 0
         t0 = time.perf_counter()
         loss = step(u8[rows], pids[rows], cams[rows])[0]
         torch.cuda.synchronize()
         out = {"seconds": time.perf_counter() - t0,
                "launches": {"attention_fwd": attention_fwd_cuda.launches,
                             "attention_bwd": attention_bwd_cuda.launches,
-                            "attention_bwd_long": attention_bwd_cuda.launches_long}}
+                            "attention_bwd_long": attention_bwd_cuda.launches_long,
+                            "attention_fwd_long": attention_fwd_cuda.launches_long}}
         grads = {name: gather_full(name, p.grad, mesh) for name, p in model.named_parameters()
                  if p.grad is not None}
         if rank == 0:
@@ -2761,7 +2791,7 @@ def _model_axis_rank(rank: int, init: str, work: str) -> None:
         n = u8.shape[0] // dp
         rows = slice(mesh.data_rank * n, (mesh.data_rank + 1) * n)
         attention_fwd_cuda.launches = attention_bwd_cuda.launches = 0
-        attention_bwd_cuda.launches_long = 0
+        attention_bwd_cuda.launches_long = attention_fwd_cuda.launches_long = 0
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         model_collectives.clear()
@@ -2775,7 +2805,8 @@ def _model_axis_rank(rank: int, init: str, work: str) -> None:
         row = {"seconds": time.perf_counter() - t1, "setup_seconds": t1 - t0,
                "launches": {"attention_fwd": attention_fwd_cuda.launches,
                             "attention_bwd": attention_bwd_cuda.launches,
-                            "attention_bwd_long": attention_bwd_cuda.launches_long},
+                            "attention_bwd_long": attention_bwd_cuda.launches_long,
+                            "attention_fwd_long": attention_fwd_cuda.launches_long},
                "collectives_forward": collectives_forward,
                "collectives_backward": collectives_backward}
         grads = {name: gather_full(name, p.grad, mesh) for name, p in model.named_parameters()
@@ -2965,6 +2996,7 @@ def _pipe_expected(kind: str, pp: int, M: int, stage: int, long: bool) -> dict:
     launches = {"attention_fwd": per if kind == "eval" else 2 * per,
                 "attention_bwd": 0 if kind == "eval" else per}
     launches["attention_bwd_long"] = launches["attention_bwd"] if long else 0
+    launches["attention_fwd_long"] = 0   # the forward's one-pass kernel up to 256 keys
     first, last = stage == 0, stage == pp - 1
     fwd = {"send": 0 if last else M, "recv": 0 if first else M, "broadcast": 1}
     bwd = {"send": 0 if first else M, "recv": 0 if last else M, "broadcast": 1}
@@ -3017,7 +3049,7 @@ def _pipe_rank(rank: int, init: str, work: str) -> None:
         if kind == "train":
             prepare, forward, backward, update = step_of(model).stages
         attention_fwd_cuda.launches = attention_bwd_cuda.launches = 0
-        attention_bwd_cuda.launches_long = 0
+        attention_bwd_cuda.launches_long = attention_fwd_cuda.launches_long = 0
         pipe_collectives.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3038,7 +3070,8 @@ def _pipe_rank(rank: int, init: str, work: str) -> None:
                "stage": mesh.pipe_rank,
                "launches": {"attention_fwd": attention_fwd_cuda.launches,
                             "attention_bwd": attention_bwd_cuda.launches,
-                            "attention_bwd_long": attention_bwd_cuda.launches_long},
+                            "attention_bwd_long": attention_bwd_cuda.launches_long,
+                            "attention_fwd_long": attention_fwd_cuda.launches_long},
                "pipe_forward": pipe_forward, "pipe_backward": pipe_backward,
                "memory": {"held_before_gib": before,
                           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}}
@@ -3432,6 +3465,11 @@ def main() -> int:
     peaks = peaks_for(name)
     rows = check_attention(torch, report, peaks)
     bwd = check_attention_bwd(torch, report, peaks)
+    # from here on every driven path runs at most 256 keys: the forward's
+    # two-pass route must not be reached (counted here and in each rank)
+    from signal_tpu_torch.ops.flash_attention import FWD_ONE_PASS_MAX_KEYS, attention_fwd_cuda
+
+    attention_fwd_cuda.launches_long = 0
     check_slice(torch, report)
     eval_launches = run_main_path(torch, report)
     check_train_step(torch, report)
@@ -3455,6 +3493,14 @@ def main() -> int:
     # phase 19: pipeline parallelism in a gloo world
     pipe_launches = check_pipeline(torch, report)
 
+    fwd_long_driven = attention_fwd_cuda.launches_long + sum(
+        n.get("attention_fwd_long", 0) for group in (world_launches, axis_launches, pipe_launches)
+        for n in group.values())
+    if fwd_long_driven:
+        raise SystemExit(f"the driven paths reached the forward's two-pass route "
+                         f"{fwd_long_driven} times: every shipped shape has at most "
+                         f"{FWD_ONE_PASS_MAX_KEYS} keys")
+
     def entry(kernel, source, replaces, rows, launches):
         bf16, fp32 = rows["main-bf16"], rows["main-fp32"]
         return {"name": kernel, "route": "cuda", "source": source, "replaces": replaces,
@@ -3467,6 +3513,18 @@ def main() -> int:
 
     fwd = entry("attention_fwd", "signal_tpu_torch/csrc/attention_fwd.cu",
                 "signal_tpu/ops/flash_attention.py:50", rows, train_launches["attention_fwd"])
+    # the bf16 forward's two routes: the one-pass kernel (every driven path)
+    # and the two-pass kernel past 256 keys (phase 3's cases only)
+    fwd.update(kernel="attention_fwd_onepass_kernel", one_pass_max_keys=FWD_ONE_PASS_MAX_KEYS,
+               repeat_bit_identical=rows["len211-bf16"]["repeat_bit_identical"],
+               launches_long=fwd_long_driven,
+               long_route={"kernel": "attention_fwd_mma_kernel",
+                           "launches_phase3": report["attention_fwd_long_route"]["launches"],
+                           "cases_phase3": report["attention_fwd_long_route"]["cases"],
+                           "max_abs_err": max(rows[n]["max_abs_err"]
+                                              for n in report["attention_fwd_long_route"]["cases"])},
+               ptxas={short: report["build"][short] for short in report["build"]
+                      if "onepass_kernel" in short})
     fwd.update(launches_eval=eval_launches, launches_recipe=recipe_launches["attention_fwd"],
                launches_serving=serving_launches,
                ms_train_shape=rows["train-bf16"]["ms"],

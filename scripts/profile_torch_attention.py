@@ -9,21 +9,27 @@ into ``build/profile_attention/`` (git-ignored), each one ``nvcc`` per
 source, all started together:
 
 * ``as_built``: the sources as they are;
-* ``staging_only``: each bf16 kernel returns right after staging its
-  operands in shared memory (the device-memory reads, no math, no stores);
-* ``math_only``: each bf16 kernel skips the staging and computes on
-  whatever shared memory holds (the on-chip work and the stores).
+* ``staging_only``: each bf16 kernel moves its operands into shared memory
+  and does no math and no stores (the device-memory reads alone; the
+  forward's one-pass kernel still waits for every copy and keeps its ring
+  of query tiles turning);
+* ``math_only``: each bf16 kernel skips the copies (and the waits for them)
+  and computes on whatever shared memory holds (the on-chip work and the
+  stores).
 
-and times each bf16 kernel in each version at the main paths' shapes
-(forward [384, 129, 768] and [192, 129, 768], backward [192, 129, 768], 12
-heads of 64), and the backward's long route (its statistics and dK/dV
-kernels together) at STRIDE_SIZE 12's [192, 211, 768] and a 384×128
-input's [192, 193, 768], with CUDA events, in turns (every version twice). Only the
-``as_built`` outputs mean anything; the script also reports the share of
-them that differ from the plain PyTorch version (the rest are equal to the
-bit). Prints one JSON object as its last line and writes it to
-``chiprun_out/profile_torch_attention.json``. Imports nothing of JAX or of
-the JAX package.
+and times each bf16 kernel in each version at the main paths' shapes, with
+CUDA events, in turns (every version twice): the forward's one-pass kernel
+at [384, 129, 768], [192, 129, 768] and STRIDE_SIZE 12's [192, 211, 768]
+(12 heads of 64), and at the same shapes the two-pass kernel that takes
+keys past 256 (launched through its route directly: the design the
+one-pass kernel replaced at these lengths); the fused backward at [192,
+129, 768], and the backward's long route (its statistics and dK/dV
+kernels together) at [192, 211, 768] and a 384×128 input's [192, 193,
+768]. Only the ``as_built`` outputs mean anything; the script also reports
+the share of them that differ from the plain PyTorch version (the rest are
+equal to the bit). Prints one JSON object as its last line and writes it
+to ``chiprun_out/profile_torch_attention.json``. Imports nothing of JAX or
+of the JAX package.
 """
 
 from __future__ import annotations
@@ -45,11 +51,18 @@ _STAGED = "  cp_async_wait_all();\n  __syncthreads();\n"
 # last barrier (no block has arrived at it) and its stores
 _RING = "    cp_async_wait<kLongStages - 1>();\n    __syncthreads();\n"
 _LONG_TAIL = "  if (n > 1) {\n    asm volatile(\"barrier.cluster.wait"
+# the forward's one-pass kernel: its product Q.K^T, and the softmax, P.V and
+# stores of a query tile
+_ONE_PASS_QK = "    dot_qk(s, Qw + st * slabs * q_slab, q_slab, Ks, kv_slab, HDP, lane);\n"
+_ONE_PASS_REST = ("    softmax_pv_store(s, Vs, kv_slab, Lk, hd, scale, dst, D, Lq - tile * kTileRows, "
+                  "lane);\n")
 _CUTS = {
     "staging_only": {
         "attention_fwd.cu": [("  stage_async(Vs, v + koff, Lk, LKP, hd, D);\n" + _STAGED,
                               "  stage_async(Vs, v + koff, Lk, LKP, hd, D);\n" + _STAGED
-                              + "  if (Lq > 0) return;\n")],
+                              + "  if (Lq > 0) return;\n"),
+                             # the one-pass kernel: no products, no softmax, no stores
+                             (_ONE_PASS_QK, ""), (_ONE_PASS_REST, "")],
         "attention_bwd.cu": [("  stage_async(Vs, v + koff, Lk, LKP, hd, D);\n" + _STAGED,
                               "  stage_async(Vs, v + koff, Lk, LKP, hd, D);\n" + _STAGED
                               + "  if (Lq > 0) return;\n"),
@@ -59,7 +72,12 @@ _CUTS = {
     "math_only": {
         "attention_fwd.cu": [("  stage_async(Qs, q + qoff, Lq - row0, rows, hd, D);\n", ""),
                              ("  stage_async(Ks, k + koff, Lk, LKP, hd, D);\n", ""),
-                             ("  stage_async(Vs, v + koff, Lk, LKP, hd, D);\n", "")],
+                             ("  stage_async(Vs, v + koff, Lk, LKP, hd, D);\n", ""),
+                             # the one-pass kernel: no TMA copy is issued or
+                             # waited for
+                             ("tma::load_4d", "if (h < 0) tma::load_4d"),
+                             ("tma::mbar_expect_tx(", "if (h < 0) tma::mbar_expect_tx("),
+                             ("tma::mbar_wait(", "if (h < 0) tma::mbar_wait(")],
         "attention_bwd.cu": [("  stage_async(Qs, q + qoff, Lq, LQP, hd, D);\n", ""),
                              ("  stage_async(Gs, g + qoff, Lq, LQP, hd, D);\n", ""),
                              ("  stage_async(Ks, k + koff, Lk, LKP, hd, D);\n", ""),
@@ -102,9 +120,12 @@ def build(out: Path):
             libs.setdefault(version, {})[name] = lib
             running.append(subprocess.Popen(
                 [_build.cuda_tool("nvcc"), *_build.NVCC_FLAGS, "-o", str(lib),
-                 str(d / f"{name}.cu")], stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT))
-    if any(p.wait() for p in running):
-        raise SystemExit("nvcc failed")
+                 str(d / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+    outputs = [(p, p.communicate()[0]) for p in running]
+    failed = [text for p, text in outputs if p.returncode]
+    if failed:
+        raise SystemExit("nvcc failed:\n" + "\n".join(failed))
     return libs
 
 
@@ -119,6 +140,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     from signal_tpu_torch.ops.flash_attention import (
+        FWD_ROUTES,
         flash_attention_bwd_reference,
         flash_attention_reference,
     )
@@ -129,6 +151,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     data = {B: [torch.randn(B, 129, 768, device="cuda", generator=gen).bfloat16()
                 for _ in range(4)] for B in (384, 192)}
+    fwd_shapes = ((384, 129), (192, 129), (192, 211))
     long_lengths = (211, 193)
     long_data = {L: [torch.randn(192, L, 768, device="cuda", generator=gen).bfloat16()
                      for _ in range(4)] for L in long_lengths}
@@ -154,12 +177,14 @@ def main() -> int:
         fwd.attention_fwd.argtypes = [p] * 4 + [i] * 6 + [ctypes.c_float, p]
         bwd.attention_bwd.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float, p]
         calls = {}
-        for B in (384, 192):
-            q, k, v, g = data[B]
+        for B, L in fwd_shapes:
+            q, k, v, g = data[B] if L == 129 else long_data[L]
             o = torch.empty_like(q)
-            calls[f"fwd [{B}, 129, 768]"] = (o, lambda q=q, k=k, v=v, o=o, B=B: fwd.attention_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, B, 12, 129, 129,
-                64, 0.125, stream))
+            for tag, route in (("fwd", "one_pass"), ("fwd two-pass", "long")):
+                calls[f"{tag} [{B}, {L}, 768]"] = (
+                    o, lambda q=q, k=k, v=v, o=o, B=B, L=L, code=FWD_ROUTES[route]:
+                    fwd.attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                      code, B, 12, L, L, 64, 0.125, stream))
         q, k, v, g = data[192]
         grads = [torch.empty_like(q) for _ in range(3)]
         calls["bwd [192, 129, 768]"] = (
@@ -190,7 +215,8 @@ def main() -> int:
         fn()
         torch.cuda.synchronize()
         if case.startswith("fwd"):
-            q, k, v, _ = data[int(case[5:8])]
+            B, L = (int(x) for x in case[case.index("[") + 1:].split(",")[:2])
+            q, k, v, _ = data[B] if L == 129 else long_data[L]
             want = [flash_attention_reference(q, k, v, 12)]
             out = [out]
         elif case.startswith("bwd long"):

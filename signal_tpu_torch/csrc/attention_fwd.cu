@@ -12,32 +12,71 @@
 // Heads are column blocks hd wide of the [B, L, D] layout the projections
 // write, read by stride: there is no head transpose before or after.
 //
-// bf16: `attention_fwd_mma_kernel`, on the tensor cores. At the ViT-B
-// shape (L = 129, hd = 64) a launch does about 64 operations per byte of
-// q, k, v and o, far under the card's ~295 FLOP/B ridge, so device memory
-// bounds it (0.091 ms at [384, 129, 768]). What holds it above that is its
-// on-chip work (the CUDA-core design it replaces, scalar fmaf with one
-// warp per query row, ran at 19x the bound). Here the products run on
-// mma.sync m16n8k16 (bf16 in, fp32 accumulation). One block owns one
-// (batch row, head, up to kMmaWarps 16-row query tiles): the 9 tiles of
-// L = 129 take 3 blocks of 3 warps, and 4 blocks share an SM, so one
-// block's staging overlaps the others' math. cp.async stages the block's
-// Q rows and the head's K and V in shared memory (zero-filled to multiples
-// of 16, rows padded so that ldmatrix is free of bank conflicts; each of
-// a head's blocks stages K and V itself). Each warp
-//   1. computes S = Q.K^T for its 16 rows into registers, a whole key row
-//      of up to 144 keys (L = 129 pads to 144),
-//   2. scales it, masks keys >= Lk to -inf, and does the fp32 softmax with
-//      quad shuffles: row max, e = exp(s - max), e / sum e (a product with
-//      the reciprocal of the sum),
-//   3. rounds the normalised P to bf16 straight into A fragments and
-//      computes O = P.V with V through ldmatrix.trans.
-// No online rescaling of an unnormalised P: that would move the rounding
-// point. Keys beyond one register row (Lk > 144, cross attention) take a
-// second pass: the first finds each row's max and sum e over the key
-// chunks, the second recomputes the logits, forms the exact normalised P
-// and accumulates P.V. Shared memory is 48 KB a block at the main shape;
-// 168 registers a thread allow 12 warps an SM.
+// bf16 runs on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
+// accumulation) by one of two routes, chosen by the caller from Lk.
+//
+// Up to 256 keys (every shipped shape: 129, 141, 193, 211, 223 tokens, the
+// tensor-parallel and pipeline shapes): `attention_fwd_onepass_kernel`. It
+// does tens of operations per byte of q, k, v and o (about 64 at L = 129,
+// 105 at 211), under the card's ~295 FLOP/B ridge, so device memory bounds
+// it (0.0743 ms at [192, 211, 768]). The design keeps each logit and each
+// exponential to one computation and each byte to one trip on chip:
+//   - a warp owns a 16-row query tile and keeps the whole key row of its
+//     logits in registers (NT n-tiles of 8 keys: 18 for up to 144 keys,
+//     28 for 224, 32 for 256), so the softmax is exact in one pass: row
+//     max, e = exp(logit - max), P = e . (1 / sum e) in fp32, rounded to
+//     bf16 once, straight into the A fragments of O = round(P).V. No
+//     online rescaling of an unnormalised P: that would move the TPU
+//     kernel's rounding point;
+//   - one block (or a thread-block cluster of up to 8) serves all of a
+//     head's query tiles, each of its (up to 4) warps walking over
+//     several, so the head's K and V come on chip once. TMA
+//     (cp.async.bulk.tensor, completing on an mbarrier) copies them box by
+//     box; in a cluster each box is multicast into every block, the boxes
+//     shared out over the blocks. A cluster a head is used when the heads
+//     alone would not give the card kFillBlocksPerSM blocks an SM
+//     (pipeline microbatches);
+//   - K and V land on separate barriers (the logits start once K is in)
+//     and each warp keeps its next query tile in flight while it computes
+//     the current one; four blocks share an SM at 129 tokens and three at
+//     211, so one block's copies run under the others' math;
+//   - TMA writes dense boxes in the 128-byte swizzle (tma.cuh) instead of
+//     the padded rows of cp.async staging; its zero fill past hd and past
+//     L stands for the padding of the head dim and of the rows;
+//   - the math has no branch per n-tile: every n-tile of the NT is
+//     computed, the rows of K and V past the keys are zero in shared
+//     memory, and keys past Lk are masked by selects. Runtime guards per
+//     n-tile split the unrolled code into blocks the compiler cannot
+//     interleave, and the warp then waits on each latency in turn.
+// Choices, each measured on the card (PERF.md §6;
+// scripts/variants_torch_attention.py times each variant against the
+// source as it is, scripts/profile_torch_attention.py splits copies from
+// math): branch-free math (variant branch_per_tile); exp2f of the scaled
+// logit less the max against expf (variant expf); the product and the
+// subtraction kept apart (fma_exponent, one fma, is a few per cent faster
+// but moves bits enough to turn a discrete choice of the bf16 train step
+// that chip_smoke.py's phase 18 holds to one process); three blocks an SM
+// at 224 keys at 166 registers against two at up to 255
+// (two_blocks_at_224_keys); clusters for few heads (no_cluster); mma.sync
+// rather than wgmma, whose 64-row tiles would pad 129 query rows to 192
+// against 144 (wgmma was not tried: mma.sync's math already takes the
+// kernel under SDPA's time at 129 tokens); several resident blocks rather
+// than one persistent block with a producer warp (as built, the kernel
+// takes about 1.1x its math-only time: the copies hide). Splitting a row
+// over two warps (maxima and sums through shared memory, the P.V partials
+// added in warp order) ran slower than one warp at 211 tokens in
+// development builds and is not kept.
+// Sums are taken in one fixed order with no atomics: two launches on the
+// same inputs give the same bits.
+//
+// Past 256 keys (cross attention, no shipped shape): the two-pass
+// `attention_fwd_mma_kernel`. One block owns one (batch row, head, up to
+// kMmaWarps 16-row query tiles) and stages its Q rows and the head's K
+// and V with cp.async (rows padded so that ldmatrix is free of bank
+// conflicts). A warp holds at most 144 keys of logits in registers, so it
+// sweeps the keys twice: the first pass finds each row's max and sum e
+// over the key chunks, the second recomputes the logits, forms the exact
+// normalised P and accumulates P.V.
 //
 // fp32: `attention_fwd_kernel`, on the CUDA cores (fp32 on the tensor
 // cores would be TF32). One block per (batch row, head, tile of query
@@ -52,6 +91,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -339,6 +379,337 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---- bf16 up to 256 keys: one pass, operands by TMA ------------------------
+
+constexpr int kOnePassMaxKeys = 256;
+constexpr int kTileRows = 16;        // rows of a query tile, and of every box
+constexpr int kMaxWarps = 4;         // query-tile workers in a block, at most
+constexpr int kFillBlocksPerSM = 2;  // fewer heads than this many an SM: a cluster a head
+
+// S = Q.K^T for one 16-row query tile against keys 0 .. 8 NT of Ks, from
+// swizzled tiles: Qt [16][hd], Ks [8 NT][hd]. Every n-tile is computed,
+// with no branch: rows past the keys are zero in shared memory, and the
+// softmax masks them.
+template <int NT>
+__device__ __forceinline__ void dot_qk(float (&acc)[NT][4], const bf16* Qt, int q_slab,
+                                       const bf16* Ks, int kv_slab, int HDP, int lane) {
+  using namespace mma;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll 1
+  for (int kc = 0; kc < HDP; kc += 16) {
+    uint32_t a[4];
+    ldsm_x4(a, tma::swz(Qt, q_slab, lane & 15, kc + (lane >> 4) * 8));
+    // the lane's row of key n-tile pair jp is 16 jp on from pair 0's, with
+    // the same swizzle (16 jp % 8 == 0): one address, constant offsets
+    const bf16* kb = tma::swz(Ks, kv_slab, (lane & 7) + (lane >> 4) * 8,
+                              kc + ((lane >> 3) & 1) * 8);
+#pragma unroll
+    for (int jp = 0; jp < NT / 2; ++jp) {
+      uint32_t b[4];
+      ldsm_x4(b, kb + jp * 16 * tma::kSlab);
+      mma16816(acc[2 * jp], a, b[0], b[1]);
+      mma16816(acc[2 * jp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// The rest of a query tile once its logits s (the dots, keys 0 .. 8 NT)
+// are in registers: the fp32 softmax over the whole key row, P rounded to
+// bf16 once into A fragments, O = round(P).V from the swizzled Vs by
+// output tiles of 64 columns, stored as bf16 at dst (row stride D, rows <
+// L, columns < hd). Whole n-tiles with selects, no branch.
+template <int NT>
+__device__ __forceinline__ void softmax_pv_store(float (&s)[NT][4], const bf16* Vs, int kv_slab,
+                                                 int Lk, int hd, float scale, bf16* dst, int D,
+                                                 int L, int lane) {
+  using namespace mma;
+  // logits times sl2 = scale log2(e), keys >= Lk at -inf; then e = 2^(s -
+  // max) = exp(logit - max) on the SFU's ex2 (exp2f: 2 ulp), as the
+  // backward's long route; P = e . (1 / sum e) in fp32, rounded to bf16
+  // once (the TPU kernel's rounding point). A product with the reciprocal
+  // differs from the quotient by at most one fp32 ulp and spares a divide.
+  const float sl2 = scale * 1.4426950408889634f;
+  const int lim = Lk - 2 * (lane & 3);
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = j * 8 + (e & 1) < lim ? s[j][e] * sl2 : -CUDART_INF_F;
+      m[e >> 1] = fmaxf(m[e >> 1], s[j][e]);
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) m[i] = quad_max(m[i]);
+  float l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = exp2f(s[j][e] - m[e >> 1]);
+      l[e >> 1] += s[j][e];
+    }
+  const float rl[2] = {1.f / quad_sum(l[0]), 1.f / quad_sum(l[1])};
+  uint32_t p[NT / 2][4];
+#pragma unroll
+  for (int kp = 0; kp < NT / 2; ++kp) {
+    p[kp][0] = pack(s[2 * kp][0] * rl[0], s[2 * kp][1] * rl[0]);
+    p[kp][1] = pack(s[2 * kp][2] * rl[1], s[2 * kp][3] * rl[1]);
+    p[kp][2] = pack(s[2 * kp + 1][0] * rl[0], s[2 * kp + 1][1] * rl[0]);
+    p[kp][3] = pack(s[2 * kp + 1][2] * rl[1], s[2 * kp + 1][3] * rl[1]);
+  }
+  const int HDP = round16(hd);
+  for (int c0 = 0; c0 < HDP; c0 += kColTile) {
+    float acc[kColTile / 8][4] = {};
+    // as in dot_qk: key step kp is 16 kp rows on, with the same swizzle
+    const bf16* vb[kColTile / 16];
+#pragma unroll
+    for (int np = 0; np < kColTile / 16; ++np)
+      vb[np] = tma::swz(Vs, kv_slab, (lane & 7) + ((lane >> 3) & 1) * 8,
+                        c0 + np * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int kp = 0; kp < NT / 2; ++kp) {
+      // columns past hd are zero in the tile (TMA's fill), and dropped
+#pragma unroll
+      for (int np = 0; np < kColTile / 16; ++np) {
+        uint32_t b[4];
+        ldsm_x4_t(b, vb[np] + kp * 16 * tma::kSlab);
+        mma16816(acc[2 * np], p[kp], b[0], b[1]);
+        mma16816(acc[2 * np + 1], p[kp], b[2], b[3]);
+      }
+    }
+    store_tile(dst + c0, D, 0, L, hd - c0, acc, 1.f, lane);
+  }
+}
+
+// Query tile `tile` of head h of batch row b into stage st of a warp's
+// ring Qw (barriers qbar[2]); one lane alone
+__device__ __forceinline__ void load_q(bf16* Qw, const CUtensorMap* qmap, uint64_t* qbar, int st,
+                                       int slabs, int h, int tile, int b) {
+  constexpr int q_slab = kTileRows * tma::kSlab;
+  tma::mbar_expect_tx(qbar + st, (uint32_t)(slabs * q_slab * sizeof(bf16)));
+  for (int sl = 0; sl < slabs; ++sl)
+    tma::load_4d(Qw + (st * slabs + sl) * q_slab, qmap, qbar + st, sl * tma::kSlab, h,
+                 tile * kTileRows, b);
+}
+
+// Shared memory of a block of `warps` workers whose key rows are 8 NT
+// (dynamic, 1024-aligned by hand), in this order, each tile in swizzled
+// slabs of 64 columns:
+//   Ks [slabs][8 NT][64], Vs [slabs][8 NT][64] (rows past the keys zero),
+//   Qs [warps][2 stages][slabs][16][64],
+//   barriers: K, V, then [warps][2] for the query stages.
+size_t one_pass_smem_bytes(int hd, int NT, int warps) {
+  const size_t slab_bytes = (size_t)tma::kSlab * sizeof(bf16);
+  const int slabs = (hd + tma::kSlab - 1) / tma::kSlab;
+  return 1024 + slab_bytes * slabs * (2 * 8 * NT + warps * 2 * kTileRows) +
+         sizeof(uint64_t) * (2 + 2 * warps);
+}
+
+// One block per (head, rank in the head's cluster); `cluster` blocks per
+// head. Worker w = rank * warps + warp takes the head's query tiles w, w +
+// cluster * warps, ... The head's K and V reach every block of the cluster
+// from one load each (multicast), box by box, the boxes shared out over
+// the cluster's blocks; each warp keeps two of its query tiles in flight.
+template <int NT, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kMaxWarps * 32, MIN_BLOCKS)
+attention_fwd_onepass_kernel(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o,
+                             int H, int Lq, int Lk, int hd, float scale, int cluster) {
+  using namespace mma;
+  extern __shared__ unsigned char smem_raw[];
+  const int LKP = round16(Lk);
+  const int HDP = round16(hd);
+  const int slabs = (hd + tma::kSlab - 1) / tma::kSlab;
+  const int warps = blockDim.x >> 5;
+  const int kv_slab = 8 * NT * tma::kSlab;    // elements of one slab of K or V
+  const int q_slab = kTileRows * tma::kSlab;  // of one slab of a query tile
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw + ((1024 - (tma::saddr(smem_raw) & 1023)) & 1023));
+  bf16* Vs = Ks + slabs * kv_slab;
+  bf16* Qs = Vs + slabs * kv_slab;
+  uint64_t* kbar = reinterpret_cast<uint64_t*>(Qs + warps * 2 * slabs * q_slab);
+  uint64_t* vbar = kbar + 1;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int rank = cluster > 1 ? tma::cluster_rank() : 0;
+  const int head = blockIdx.x / cluster;
+  const int b = head / H;
+  const int h = head - b * H;
+  const int D = H * hd;
+  const int tiles = round16(Lq) / kTileRows;
+  const int workers = cluster * warps;
+  uint64_t* qbar = kbar + 2 + 2 * warp;
+  bf16* Qw = Qs + warp * 2 * slabs * q_slab;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 + 2 * warps; ++i) tma::mbar_init(kbar + i, 1);
+    tma::fence_barrier_init();
+  }
+  // the rows of K and V past the keys, which no copy writes, to zero
+  const int pad = (8 * NT - LKP) * (tma::kSlab / 8);  // 16-byte units a slab
+  for (int x = threadIdx.x; x < 2 * slabs * pad; x += blockDim.x) {
+    const int slab = x / pad;  // K's slabs, then V's (V follows K)
+    *reinterpret_cast<uint4*>(Ks + slab * kv_slab + LKP * tma::kSlab + (x - slab * pad) * 8) =
+        make_uint4(0, 0, 0, 0);
+  }
+  __syncthreads();
+  if (cluster > 1) tma::cluster_sync();  // every block's barriers exist before a copy lands
+
+  // K and V: LKP / 16 boxes a slab each, box j issued by the block of rank
+  // j % cluster into all the cluster's blocks
+  const int boxes = slabs * (LKP / kTileRows);
+  if (threadIdx.x == 0) {
+    const uint32_t bytes = (uint32_t)(slabs * LKP * tma::kSlab * sizeof(bf16));
+    tma::mbar_expect_tx(kbar, bytes);
+    tma::mbar_expect_tx(vbar, bytes);
+  }
+  if (warp == 0) {
+    for (int j = rank + cluster * lane; j < 2 * boxes; j += 32 * cluster) {
+      const bool is_v = j >= boxes;
+      const int jj = is_v ? j - boxes : j;
+      const int slab = jj / (LKP / kTileRows);
+      const int row = (jj - slab * (LKP / kTileRows)) * kTileRows;
+      bf16* dst = (is_v ? Vs : Ks) + slab * kv_slab + row * tma::kSlab;
+      uint64_t* bar = is_v ? vbar : kbar;
+      const CUtensorMap* map = is_v ? &vmap : &kmap;
+      if (cluster > 1)
+        tma::load_4d_multicast(dst, map, bar, (uint16_t)((1u << cluster) - 1), slab * tma::kSlab,
+                               h, row, b);
+      else
+        tma::load_4d(dst, map, bar, slab * tma::kSlab, h, row, b);
+    }
+  }
+
+  const int first = rank * warps + warp;
+  if (lane == 0) {
+    if (first < tiles) load_q(Qw, &qmap, qbar, 0, slabs, h, first, b);
+    if (first + workers < tiles) load_q(Qw, &qmap, qbar, 1, slabs, h, first + workers, b);
+  }
+
+  int i = 0;
+  for (int tile = first; tile < tiles; tile += workers, ++i) {
+    const int st = i & 1;
+    if (i == 0) tma::mbar_wait(kbar, 0);
+    tma::mbar_wait(qbar + st, (i >> 1) & 1);
+    float s[NT][4];
+    dot_qk(s, Qw + st * slabs * q_slab, q_slab, Ks, kv_slab, HDP, lane);
+    __syncwarp();  // the stage is read: the tile after next may land in it
+    if (lane == 0 && tile + 2 * workers < tiles) {
+      tma::fence_proxy_async();
+      load_q(Qw, &qmap, qbar, st, slabs, h, tile + 2 * workers, b);
+    }
+    if (i == 0) tma::mbar_wait(vbar, 0);
+    bf16* dst = o + ((size_t)b * Lq + tile * kTileRows) * D + (size_t)h * hd;
+    softmax_pv_store(s, Vs, kv_slab, Lk, hd, scale, dst, D, Lq - tile * kTileRows, lane);
+  }
+  if (cluster > 1) {
+    // no block leaves while a copy it issued may still be landing in another
+    tma::mbar_wait(kbar, 0);
+    tma::mbar_wait(vbar, 0);
+    tma::cluster_sync();
+  }
+}
+
+struct OnePassShape {
+  int cluster, warps;
+};
+
+// Workers for a launch: up to kMaxWarps a block, each with the same number
+// of tiles as far as the tiles allow; one block a head while the heads fill
+// the card kFillBlocksPerSM times over, else a cluster of up to 8 blocks a
+// head.
+OnePassShape one_pass_shape(int B, int H, int Lq) {
+  int device = 0;
+  cudaGetDevice(&device);
+  static int sms[64] = {};  // per device, read once
+  if (device < 64 && !sms[device])
+    cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device);
+  const int sm_count = device < 64 && sms[device] ? sms[device] : 132;
+  const int tiles = mma::round16(Lq) / kTileRows;
+  const int heads = B * H;
+  int cluster = 1;
+  if (heads < kFillBlocksPerSM * sm_count) {
+    cluster = (kFillBlocksPerSM * sm_count + heads - 1) / heads;
+    cluster = cluster < 8 ? cluster : 8;
+    cluster = cluster < tiles ? cluster : tiles;
+  }
+  const int per_warp = (tiles + cluster * kMaxWarps - 1) / (cluster * kMaxWarps);
+  const int warps = (tiles + cluster * per_warp - 1) / (cluster * per_warp);
+  cluster = (tiles + warps * per_warp - 1) / (warps * per_warp);
+  return {cluster, warps};
+}
+
+template <int NT, int MIN_BLOCKS>
+int launch_one_pass_nt(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                       void* o, int B, int H, int Lq, int Lk, int hd, float scale,
+                       OnePassShape shape, cudaStream_t stream) {
+  auto kernel = attention_fwd_onepass_kernel<NT, MIN_BLOCKS>;
+  const size_t smem = one_pass_smem_bytes(hd, NT, shape.warps);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  // all of the SM's 228 KB to shared memory, so that MIN_BLOCKS blocks fit
+  // (the attribute stays set: once an instance and device)
+  int device = 0;
+  cudaGetDevice(&device);
+  static bool carveout[64] = {};
+  if (device >= 64 || !carveout[device]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    if (device < 64) carveout[device] = true;
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned)(shape.cluster * B * H));
+  config.blockDim = dim3((unsigned)(shape.warps * 32));
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)shape.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, kernel, qm, km, vm, static_cast<bf16*>(o), H, Lq, Lk, hd,
+                           scale, shape.cluster);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The key n-tiles a warp holds in registers for Lk keys: the nearest
+// instance at or above the keys (a longer row costs registers, and the
+// blocks an SM holds with them: MIN_BLOCKS below)
+int one_pass_nt(int Lk) {
+  const int LKP = mma::round16(Lk);
+  return LKP <= 64 ? 8 : LKP <= 144 ? 18 : LKP <= 224 ? 28 : 32;
+}
+
+int launch_one_pass(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq,
+                    int Lk, int hd, float scale, cudaStream_t stream) {
+  if (Lk > kOnePassMaxKeys || hd > 128) return (int)cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm;
+  int err = tma::encode_heads(&qm, q, B, Lq, H, hd, kTileRows);
+  if (!err) err = tma::encode_heads(&km, k, B, Lk, H, hd, kTileRows);
+  if (!err) err = tma::encode_heads(&vm, v, B, Lk, H, hd, kTileRows);
+  if (err) return err;
+  const OnePassShape shape = one_pass_shape(B, H, Lq);
+  switch (one_pass_nt(Lk)) {
+    case 8:
+      return launch_one_pass_nt<8, 4>(qm, km, vm, o, B, H, Lq, Lk, hd, scale, shape, stream);
+    case 18:
+      return launch_one_pass_nt<18, 3>(qm, km, vm, o, B, H, Lq, Lk, hd, scale, shape, stream);
+    case 28:
+      return launch_one_pass_nt<28, 3>(qm, km, vm, o, B, H, Lq, Lk, hd, scale, shape, stream);
+    default:
+      return launch_one_pass_nt<32, 2>(qm, km, vm, o, B, H, Lq, Lk, hd, scale, shape, stream);
+  }
+}
+
 int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq,
                int Lk, int hd, float scale, cudaStream_t stream) {
   const size_t smem = mma_smem_bytes(Lq, Lk, hd);
@@ -358,9 +729,15 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int 
 
 extern "C" {
 
-// Shared memory one launch needs, in bytes (dtype 0 = fp32, 1 = bf16).
-size_t attention_fwd_smem_bytes(int dtype, int Lq, int Lk, int hd) {
-  return dtype == 1 ? mma_smem_bytes(Lq, Lk, hd) : smem_bytes(Lk, hd);
+// The routes of a launch, chosen by the caller: 0 fp32 (CUDA cores), 1
+// bf16 up to kOnePassMaxKeys keys (one pass, TMA), 2 bf16 at any length
+// (the two-pass kernel, for more keys).
+int attention_fwd_one_pass_max_keys() { return kOnePassMaxKeys; }
+
+// Shared memory one launch of `route` needs, in bytes.
+size_t attention_fwd_smem_bytes(int route, int Lq, int Lk, int hd) {
+  if (route == 1) return one_pass_smem_bytes(hd, one_pass_nt(Lk), kMaxWarps);
+  return route == 2 ? mma_smem_bytes(Lq, Lk, hd) : smem_bytes(Lk, hd);
 }
 
 // Largest dynamic shared memory a block may opt into on `device`.
@@ -371,12 +748,13 @@ int attention_fwd_smem_limit(int device) {
 }
 
 // q [B, Lq, H*hd], k/v [B, Lk, H*hd], o [B, Lq, H*hd]: contiguous, 16-byte
-// aligned, hd % 8 == 0, hd <= 128. Launches on `stream`; returns
-// cudaGetLastError().
-int attention_fwd(const void* q, const void* k, const void* v, void* o, int dtype,
+// aligned, hd % 8 == 0, hd <= 128; fp32 for route 0, bf16 for 1 and 2.
+// Launches on `stream`; returns the first cudaError.
+int attention_fwd(const void* q, const void* k, const void* v, void* o, int route,
                   int B, int H, int Lq, int Lk, int hd, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  if (route == 1) return launch_one_pass(q, k, v, o, B, H, Lq, Lk, hd, scale, s);
+  if (route == 2) {
     if (hd > 128) return (int)cudaErrorInvalidValue;
     return launch_mma(q, k, v, o, B, H, Lq, Lk, hd, scale, s);
   }

@@ -26,12 +26,22 @@ per byte moved, against the card's ~295 FLOP/B ridge, so their floor is
 device memory. What holds them above it is their on-chip work, and their
 bf16 paths run it on the tensor cores (``mma.sync``, bf16 in, fp32
 accumulation), at the TPU kernels' rounding points. Their fp32 paths stay
-on the CUDA cores: fp32 on the tensor cores would be TF32. Both read each
-head's operands from device memory once into shared memory, keep
-everything of size [Lq, Lk] on chip, and read the heads by stride from
-[B, L, D] so no transpose copies are made. The sources say more. Mesh
-and tensor-parallel routing (`:263-281` of the JAX module) come with
-tensor parallelism.
+on the CUDA cores: fp32 on the tensor cores would be TF32. Both keep
+everything of size [Lq, Lk] on chip and read the heads by stride from
+[B, L, D], so no transpose copies are made.
+
+The bf16 forward has two routes, chosen here from the keys
+(:func:`fwd_route`): up to :data:`FWD_ONE_PASS_MAX_KEYS` (256, every
+shipped shape) the one-pass kernel, in which a warp holds a query tile's
+whole key row of logits in registers, so each logit and each exponential
+is computed once, and a block (or a thread-block cluster of up to 8, when
+the heads are too few to fill the card) brings each head's K and V on
+chip once with TMA; past 256 keys the two-pass kernel, counted in
+``attention_fwd_cuda.launches_long`` as well. A shape whose route does
+not fit in shared memory raises. The bf16 backward routes by length in
+the same way (fused up to 160 tokens, its long route past them). The
+sources say more. Mesh and tensor-parallel routing (`:263-281` of the JAX
+module) live in ``ops/attention.sharded_attention``.
 """
 
 from __future__ import annotations
@@ -45,6 +55,22 @@ import torch
 # 0), and hd <= 128, at which the bf16 backward's fused kernel still holds
 # Lq = Lk = 160 in shared memory (its long route takes up to 1024 keys)
 MAX_HEAD_DIM = 128
+
+# the bf16 forward's one-pass kernel keeps a whole key row of logits in a
+# warp's registers: up to this many keys; longer rows take the two-pass
+# kernel (``csrc/attention_fwd.cu``'s ``attention_fwd_one_pass_max_keys``)
+FWD_ONE_PASS_MAX_KEYS = 256
+# the forward's routes, as ``attention_fwd`` in the source numbers them
+FWD_ROUTES = {"fp32": 0, "one_pass": 1, "long": 2}
+
+
+def fwd_route(dtype: torch.dtype, Lk: int) -> str:
+    """The forward kernel a launch takes: ``fp32`` (CUDA cores), or in
+    bf16 ``one_pass`` up to :data:`FWD_ONE_PASS_MAX_KEYS` keys and
+    ``long`` (the two-pass kernel) past them."""
+    if dtype == torch.float32:
+        return "fp32"
+    return "one_pass" if Lk <= FWD_ONE_PASS_MAX_KEYS else "long"
 
 
 def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -137,14 +163,24 @@ def _check(name: str, num_heads: int, q, *rest) -> int:
     return hd
 
 
+_libs = {}
+
+
 def _load(name: str) -> ctypes.CDLL:
-    """The built library with its C signatures declared."""
+    """The built library with its C signatures declared (once: a
+    microbatch's launch is bound by this host path)."""
+    if name in _libs:
+        return _libs[name]
     from signal_tpu_torch.ops._build import load
 
     lib = load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "attention_fwd":
         lib.attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+        lib.attention_fwd_one_pass_max_keys.argtypes = []
+        lib.attention_fwd_one_pass_max_keys.restype = i
+        if lib.attention_fwd_one_pass_max_keys() != FWD_ONE_PASS_MAX_KEYS:
+            raise RuntimeError("csrc/attention_fwd.cu and FWD_ONE_PASS_MAX_KEYS disagree")
     else:
         lib.attention_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
                                       ctypes.c_float, p]
@@ -159,6 +195,7 @@ def _load(name: str) -> ctypes.CDLL:
     getattr(lib, f"{name}_smem_bytes").restype = ctypes.c_size_t
     getattr(lib, f"{name}_smem_limit").argtypes = [i]
     getattr(lib, f"{name}_smem_limit").restype = i
+    _libs[name] = lib
     return lib
 
 
@@ -172,8 +209,12 @@ def _guard_smem(name: str, lib: ctypes.CDLL, need: int, device: torch.device, wh
 def attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        num_heads: int) -> torch.Tensor:
     """Launch ``csrc/attention_fwd.cu`` on the current stream. q [B, Lq, D],
-    k/v [B, Lk, D], fp32 or bf16, on the card → o [B, Lq, D]. Counts each
-    launch in ``attention_fwd_cuda.launches``.
+    k/v [B, Lk, D], fp32 or bf16, on the card → o [B, Lq, D]. In bf16 it
+    routes by the keys (:func:`fwd_route`): up to 256 the one-pass kernel,
+    past them the two-pass kernel; a shape whose route does not fit in
+    shared memory raises. Counts each launch in
+    ``attention_fwd_cuda.launches``, and those of the two-pass route also
+    in ``attention_fwd_cuda.launches_long``.
 
     Its output carries no gradient, so it raises under grad mode when an
     input requires grad: a graph goes through :func:`flash_attention`."""
@@ -184,20 +225,23 @@ def attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _load("attention_fwd")
     B, Lq, D = q.shape
     Lk = k.shape[1]
-    code = _DTYPE_CODE[q.dtype]
+    route = fwd_route(q.dtype, Lk)
+    code = FWD_ROUTES[route]
     _guard_smem("attention_fwd", lib, lib.attention_fwd_smem_bytes(code, Lq, Lk, hd),
-                q.device, f"Lq={Lq}, Lk={Lk}, hd={hd} ({q.dtype})")
+                q.device, f"Lq={Lq}, Lk={Lk}, hd={hd} ({q.dtype}, {route} route)")
     o = torch.empty_like(q)
     rc = lib.attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                            code, B, num_heads, Lq, Lk, hd, 1.0 / math.sqrt(hd),
                            torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"attention_fwd launch failed: cudaError {rc}")
+        raise RuntimeError(f"attention_fwd launch failed ({route} route): cudaError {rc}")
     attention_fwd_cuda.launches += 1
+    attention_fwd_cuda.launches_long += route == "long"
     return o
 
 
 attention_fwd_cuda.launches = 0
+attention_fwd_cuda.launches_long = 0
 
 
 @torch.library.custom_op("signal_tpu_torch::attention_fwd", mutates_args=(),

@@ -53,9 +53,15 @@ def _qkv(seed, B, Lq, Lk, D):
     (1, 129, 129, 64, 1, "float32"), (1, 129, 129, 64, 1, "bfloat16"),
     (2, 9, 9, 16, 2, "float32"), (2, 9, 9, 16, 2, "bfloat16"),
     (2, 9, 9, 48, 2, "float32"), (2, 9, 9, 48, 2, "bfloat16"),
+    # the bf16 forward's routes: STRIDE_SIZE 12's 211 tokens and the
+    # one-pass kernel's longest row (256 keys), then one key past it (the
+    # two-pass kernel)
+    (1, 211, 211, 64, 1, "bfloat16"), (1, 5, 256, 64, 1, "bfloat16"),
+    (1, 5, 257, 64, 1, "bfloat16"),
 ], ids=["fp32", "bf16", "cross-fp32", "cross-bf16", "hd60", "hd96", "hd64",
         "lq1-lk17-fp32", "lq1-lk17-bf16", "l129-fp32", "l129-bf16",
-        "hd8-fp32", "hd8-bf16", "hd24-fp32", "hd24-bf16"])
+        "hd8-fp32", "hd8-bf16", "hd24-fp32", "hd24-bf16",
+        "l211-bf16", "lq5-lk256-bf16", "lq5-lk257-bf16"])
 def test_flash_attention_plain_matches_jax_kernel(B, Lq, Lk, D, H, dtype):
     q, k, v = _qkv(B * 100 + D, B, Lq, Lk, D)
     want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), num_heads=H,
@@ -162,9 +168,28 @@ def test_quick_gelu_matches_jax():
                                to_np(jatt.quick_gelu(jnp.asarray(x))), atol=1e-6, rtol=1e-6)
 
 
+def test_forward_routes_by_keys():
+    """The bf16 forward's route is chosen in host code from the keys: the
+    one-pass kernel up to 256, the two-pass kernel past them; fp32 has one
+    kernel. The limit is the one the CUDA source holds."""
+    from pathlib import Path
+
+    from signal_tpu_torch.ops import flash_attention as fa
+
+    assert fa.FWD_ONE_PASS_MAX_KEYS == 256
+    assert [fa.fwd_route(torch.bfloat16, n) for n in (1, 129, 211, 256, 257, 1024)] == \
+        ["one_pass"] * 4 + ["long"] * 2
+    assert {fa.fwd_route(torch.float32, n) for n in (1, 256, 257)} == {"fp32"}
+    assert set(fa.FWD_ROUTES) == {"fp32", "one_pass", "long"}
+    src = (Path(fa.__file__).parent.parent / "csrc" / "attention_fwd.cu").read_text()
+    assert f"constexpr int kOnePassMaxKeys = {fa.FWD_ONE_PASS_MAX_KEYS};" in src
+    assert f"route == {fa.FWD_ROUTES['one_pass']}) return launch_one_pass" in src
+    assert f"route == {fa.FWD_ROUTES['long']}) {{" in src
+
+
 def test_cuda_wrapper_refuses_cpu_tensors():
     """No fallback: the kernel's wrapper raises on tensors off the card."""
     q = torch.zeros(1, 4, 64)
     with pytest.raises(ValueError, match="CUDA"):
         attention_fwd_cuda(q, q, q, 4)
-    assert attention_fwd_cuda.launches == 0
+    assert attention_fwd_cuda.launches == attention_fwd_cuda.launches_long == 0

@@ -14,9 +14,14 @@ pytestmark = pytest.mark.cuda
 
 # the bf16 kernels pad rows and the head dim to multiples of 16: every
 # length at or next to a tile edge, at head dims 8 and 24 (a zero-padded
-# contraction), 64 and 128; cross attention both ways
-_EDGE_LENGTHS = [(n, n) for n in (1, 15, 16, 17, 129, 145)] + [
-    (1, 145), (145, 1), (17, 129), (129, 16), (15, 17)]
+# contraction), 64 and 128; cross attention both ways. The forward's
+# one-pass kernel holds 64, 144, 224 or 256 keys of a row in registers
+# (143-145, 208-225, 255-256) and gives way to the two-pass kernel past 256
+# (257); the backward's fused kernel takes up to 160 (159-161)
+_EDGE_LENGTHS = [(n, n) for n in (1, 15, 16, 17, 129, 143, 144, 145, 159, 160, 161, 192, 193,
+                                  *range(208, 226), 255, 256, 257)] + [
+    (1, 145), (145, 1), (17, 129), (129, 16), (15, 17), (17, 256), (256, 17), (3, 257),
+    (257, 3)]
 _EDGES = [(2, lq, lk, 2 * hd, 2, torch.bfloat16)
           for hd in (8, 24, 64, 128) for lq, lk in _EDGE_LENGTHS]
 # past 160 tokens the bf16 backward takes its long route: lengths across
@@ -68,6 +73,12 @@ def cuda_device():
     (2, 17, 33, 256, 2, torch.float32),       # hd 128, ragged lengths
     (4, 3, 384, 512, 8, torch.bfloat16),      # keys past a register row: two passes
     (2, 17, 300, 256, 2, torch.bfloat16),     # the same at hd 128
+    # fewer heads than the card's 132 SMs: the one-pass kernel spreads a
+    # head's query tiles over a cluster that shares its K and V
+    (3, 211, 211, 768, 12, torch.bfloat16),
+    (1, 129, 129, 768, 12, torch.bfloat16),
+    (2, 193, 193, 384, 6, torch.bfloat16),
+    (1, 256, 256, 512, 4, torch.bfloat16),
     *_TP_SHAPES,
     *_PIPE_SHAPES,
     *_EDGES,
@@ -102,6 +113,41 @@ def test_attention_kernel_rejects_what_it_cannot_take(cuda_device):
     kv = torch.zeros(1, 4000, 64, device=cuda_device)
     with pytest.raises(ValueError, match="shared"):
         attention_fwd_cuda(q, kv, kv, 1)                  # Lk beyond shared memory
+    # bf16: past 256 keys the two-pass kernel, which holds all of a head's
+    # keys in shared memory too
+    with pytest.raises(ValueError, match=r"long route\) needs \d+ B of shared memory"):
+        attention_fwd_cuda(q.bfloat16(), kv.bfloat16(), kv.bfloat16(), 1)
+
+
+def test_attention_fwd_routes_by_keys(cuda_device):
+    """bf16 up to 256 keys takes the one-pass kernel, past them the
+    two-pass kernel (counted in ``launches_long`` too); fp32 its own."""
+    from signal_tpu_torch.ops.flash_attention import attention_fwd_cuda
+
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    for Lk, dtype, long_route in ((256, torch.bfloat16, 0), (129, torch.bfloat16, 0),
+                                  (257, torch.bfloat16, 1), (300, torch.float32, 0)):
+        q = torch.randn(2, 9, 128, device=cuda_device, generator=gen).to(dtype)
+        kv = torch.randn(2, Lk, 128, device=cuda_device, generator=gen).to(dtype)
+        before = (attention_fwd_cuda.launches, attention_fwd_cuda.launches_long)
+        attention_fwd_cuda(q, kv, kv, 2)
+        torch.cuda.synchronize()
+        assert (attention_fwd_cuda.launches - before[0],
+                attention_fwd_cuda.launches_long - before[1]) == (1, long_route), (Lk, dtype)
+
+
+def test_attention_fwd_one_pass_repeats_to_the_bit(cuda_device):
+    """The one-pass kernel sums in one fixed order, with no atomics: two
+    launches at STRIDE_SIZE 12's train shape give the same bits."""
+    from signal_tpu_torch.ops.flash_attention import attention_fwd_cuda
+
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    q, k, v = (torch.randn(192, 211, 768, device=cuda_device, generator=gen).bfloat16()
+               for _ in "qkv")
+    first = attention_fwd_cuda(q, k, v, 12)
+    second = attention_fwd_cuda(q, k, v, 12)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_attention_fwd_kernel_refuses_a_graph(cuda_device):
@@ -205,17 +251,24 @@ def test_attention_bwd_long_route_repeats_to_the_bit(cuda_device):
 
 def test_bf16_kernels_run_on_the_tensor_cores_without_spills(cuda_device):
     """Each library's bf16 kernels hold tensor-core instructions (HMMA in
-    ``cuobjdump -sass``) and spill nothing (``nvcc -Xptxas -v``)."""
+    ``cuobjdump -sass``) and spill nothing (``nvcc -Xptxas -v``): the
+    forward's one-pass kernel (each of its instances), its two-pass kernel
+    and the backward's."""
     from signal_tpu_torch.ops import _build
 
     try:
         _build.cuda_tool("cuobjdump")
     except RuntimeError:
         pytest.skip("needs cuobjdump")
+    bf16_kernels = ("mma_kernel", "onepass_kernel")
     for name in ("attention_fwd", "attention_bwd"):
-        hmma = {fn: n for fn, n in _build.hmma_counts(name).items() if "mma_kernel" in fn}
+        hmma = {fn: n for fn, n in _build.hmma_counts(name).items()
+                if any(k in fn for k in bf16_kernels)}
         assert hmma and all(hmma.values()), (name, hmma)
-        report = {fn: r for fn, r in _build.ptxas_report(name).items() if "mma_kernel" in fn}
+        if name == "attention_fwd":
+            assert sum("onepass_kernel" in fn for fn in hmma) == 4, hmma
+        report = {fn: r for fn, r in _build.ptxas_report(name).items()
+                  if any(k in fn for k in bf16_kernels)}
         assert report.keys() == hmma.keys(), (name, report, hmma)
         for fn, r in report.items():
             assert r["spill_stores"] == r["spill_loads"] == 0, (fn, r)
