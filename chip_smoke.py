@@ -189,22 +189,26 @@ def log(msg: str) -> None:
 # The forward's one-pass kernel holds 64, 144, 224 or 256 keys of a row in
 # registers (143-145, 208-225, 255-256) and gives way to the two-pass
 # kernel past 256 (257); the backward's fused kernel takes up to 160
-# (159-161)
-EDGE_LENGTHS = [(n, n) for n in (1, 15, 16, 17, 129, 143, 144, 145, 159, 160, 161, 192, 193,
+# (159-161), holding 136 or 160 keys of a row (136-137)
+EDGE_LENGTHS = [(n, n) for n in (1, 15, 16, 17, 129, 136, 137, 143, 144, 145, 159, 160, 161, 192, 193,
                                  *range(208, 226), 255, 256, 257)] + [
     (1, 145), (145, 1), (17, 129), (129, 16), (15, 17), (17, 256), (256, 17), (3, 257),
     (257, 3)]
 EDGES = [(f"edge-{lq}x{lk}-hd{hd}", 2, lq, lk, 2 * hd, 2)
          for hd in (8, 24, 64, 128) for lq, lk in EDGE_LENGTHS]
-# past 160 tokens the bf16 backward takes its long route (a statistics
-# kernel, then a key-parallel kernel that streams the queries in chunks of
-# 32): lengths across its 16-row tiles and chunks, the train shapes of
-# STRIDE_SIZE 12 (211) and a 384×128 input (193), one past a block of 256
-# keys (257: a cluster of two; 128 keys a block at hd 128), its longest
-# (1024), and cross attention both ways, at head dims 64 and 128
+# past 160 tokens either way (ops/flash_attention.bwd_route) the bf16
+# backward takes its long route (a statistics kernel, then a key-parallel
+# kernel that streams the queries in chunks of 32): lengths across its
+# 16-row tiles and chunks, the train shapes of STRIDE_SIZE 12 (211) and a
+# 384×128 input (193), one past a block of 256 keys (257: a cluster of
+# two; 128 keys a block at hd 128), its longest (1024), cross attention
+# both ways, and one length just past 160 with the other within, at head
+# dims 64 and 128
 LONG_EDGES = [(f"edge-{lq}x{lk}-hd{hd}", 2, lq, lk, 2 * hd, 2) for hd in (64, 128)
               for lq, lk in [(n, n) for n in (161, 176, 193, 211, 223, 225, 256, 257, 1024)]
-              + [(211, 129), (129, 211), (1024, 17), (17, 1024)]]
+              + [(211, 129), (129, 211), (1024, 17), (17, 1024),
+                 # one length past the fused kernel's 160, the other within
+                 (160, 161), (161, 160), (1, 161), (161, 1)]]
 # the forward at the variants' lengths: the prompted blocks' 141, and 193,
 # 211 and 223 (the second pass over keys)
 LONG_LENGTHS = (141, 193, 211, 223)
@@ -430,10 +434,12 @@ def check_attention_bwd(torch, report, peaks):
 
     from signal_tpu_torch.ops.flash_attention import (
         attention_bwd_cuda,
+        bwd_route,
         flash_attention_bwd_reference,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(2)
+    long_before = attention_bwd_cuda.launches_long
     cases = [  # (name, B, Lq, Lk, D, H, dtype): main = the train step's shape
         ("main-bf16", 192, 129, 129, 768, 12, torch.bfloat16),
         ("main-fp32", 192, 129, 129, 768, 12, torch.float32),
@@ -454,8 +460,12 @@ def check_attention_bwd(torch, report, peaks):
     for name, B, Lq, Lk, D, H, dt in cases:
         q, g = (torch.randn(B, Lq, D, device="cuda", generator=gen).to(dt) for _ in "qg")
         k, v = (torch.randn(B, Lk, D, device="cuda", generator=gen).to(dt) for _ in "kv")
+        before = attention_bwd_cuda.launches_long
         got = attention_bwd_cuda(q, k, v, g, H)
         torch.cuda.synchronize()
+        route = bwd_route(dt, Lq, Lk, D // H)
+        if attention_bwd_cuda.launches_long - before != (route == "long"):
+            raise SystemExit(f"attention_bwd {name}: launched off its route ({route})")
         want = flash_attention_bwd_reference(q, k, v, g, H)
         tol = BWD_FP32_TOL if dt == torch.float32 else BWD_BF16_TOL
         tol_text = f"atol {tol['atol']} + rtol {tol['rtol']}"
@@ -466,7 +476,7 @@ def check_attention_bwd(torch, report, peaks):
                "max_abs_err": max(e.max().item() for e in errs),
                "max_abs_err_dq_dk_dv": [e.max().item() for e in errs],
                "max_abs_want_dq_dk_dv": [b.float().abs().max().item() for b in want],
-               "tolerance": tol_text}
+               "tolerance": tol_text, "route": route}
         if name.startswith(("main", "long", "d384", "clipreid", "tp", "pipe")):
             hd = D // H
             elt = q.element_size()
@@ -491,9 +501,11 @@ def check_attention_bwd(torch, report, peaks):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
             row["tflops"] = flops / row["ms"] / 1e9
             del qh, kh, vh, o, gh
-        if name == "long211-bf16":
-            # the long route sums dQ over a head's key blocks in a fixed
-            # order: a second launch gives the same bits
+        if name in ("main-bf16", "pipe-rows3-l129-bf16", "long211-bf16"):
+            # both bf16 routes sum in fixed orders with no atomics (the fused
+            # kernel's cluster blocks share whole tiles; the long route adds
+            # dQ over a head's key blocks in rank order): a second launch
+            # gives the same bits
             again = attention_bwd_cuda(q, k, v, g, H)
             torch.cuda.synchronize()
             row["repeat_bit_identical"] = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -508,6 +520,11 @@ def check_attention_bwd(torch, report, peaks):
             raise SystemExit(f"attention_bwd {name}: two launches differ")
         del q, k, v, g, got, want, errs
     log_edges("attention_bwd", rows)
+    long_cases = sorted(n for n, r in rows.items() if r["route"] == "long")
+    report["attention_bwd_long_route"] = {
+        "cases": long_cases, "launches": attention_bwd_cuda.launches_long - long_before}
+    log(f"[kernel] attention_bwd long route (past 160 tokens): {len(long_cases)} cases, "
+        f"{report['attention_bwd_long_route']['launches']} launches with the timings")
     report["attention_bwd"] = rows
     return rows
 
@@ -537,7 +554,8 @@ def check_build(torch, report):
             log(f"[build] {lib}: {short}: {row['registers']} registers, spill stores "
                 f"{row['spill_stores']} B, spill loads {row['spill_loads']} B, "
                 f"HMMA {row['hmma']}")
-            if ("mma_kernel" in short or "onepass_kernel" in short) and row["hmma"] == 0:
+            if any(k in short for k in ("mma_kernel", "onepass_kernel", "fused_kernel")) and \
+                    row["hmma"] == 0:
                 raise SystemExit(f"{short} has no tensor-core instruction")
     report["build"] = kernels
     log(f"[build] {sorted(libs)} in {report['build_s']:.1f} s")
@@ -845,6 +863,7 @@ def check_train_step(torch, report):
     torch.cuda.reset_peak_memory_stats()
     n = 5
     attention_fwd_cuda.launches = attention_bwd_cuda.launches = 0
+    attention_bwd_cuda.launches_long = 0
     t0 = time.perf_counter()
     losses = [step(u8, pids, cams)[0] for _ in range(n)]
     torch.cuda.synchronize()
@@ -853,11 +872,16 @@ def check_train_step(torch, report):
         "batch": B, "ms_per_step": ms, "samples_per_s": B / ms * 1e3,
         "attention_fwd_launches_per_step": attention_fwd_cuda.launches / n,
         "attention_bwd_launches_per_step": attention_bwd_cuda.launches / n,
+        "attention_bwd_long_launches_per_step": attention_bwd_cuda.launches_long / n,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "losses": [x.item() for x in losses], **mfu(torch, spec, B, ms, train=True)}
+    out["bf16_step"]["device_busy_ms_per_step"] = device_busy_ms(torch, step, (u8, pids, cams))
     log(f"[train] flagship train step bf16 B={B}: {json.dumps(out['bf16_step'])}")
+    # 129 tokens: every backward launch takes the fused kernel
     if (out["bf16_step"]["attention_fwd_launches_per_step"],
-            out["bf16_step"]["attention_bwd_launches_per_step"]) != (2 * spec.layers, spec.layers):
+            out["bf16_step"]["attention_bwd_launches_per_step"],
+            out["bf16_step"]["attention_bwd_long_launches_per_step"]) != \
+            (2 * spec.layers, spec.layers, 0):
         raise SystemExit(f"launches per step: {out['bf16_step']}")
     if not all(math.isfinite(x) for x in out["bf16_step"]["losses"]):
         raise SystemExit(f"non-finite train loss: {out['bf16_step']['losses']}")
@@ -3532,6 +3556,17 @@ def main() -> int:
     bwd_entry = entry("attention_bwd", "signal_tpu_torch/csrc/attention_bwd.cu",
                       "signal_tpu/ops/flash_attention.py:123", bwd,
                       train_launches["attention_bwd"])
+    # the bf16 backward's fused route up to 160 tokens (every driven path at
+    # 129 tokens); its long route has its own entry below
+    bwd_entry.update(
+        kernel="attention_bwd_fused_kernel",
+        repeat_bit_identical=bwd["main-bf16"]["repeat_bit_identical"],
+        repeat_bit_identical_pipe_rows3=bwd["pipe-rows3-l129-bf16"]["repeat_bit_identical"],
+        train_step_long_launches=report["train"]["bf16_step"][
+            "attention_bwd_long_launches_per_step"],
+        train_step_device_busy_ms=report["train"]["bf16_step"]["device_busy_ms_per_step"],
+        ptxas={short: report["build"][short] for short in report["build"]
+               if "fused_kernel" in short})
     fwd["launches_variants"] = variant_launches["attention_fwd"]
     fwd.update({f"ms_len{L}": rows[f"len{L}-bf16"]["ms"] for L in LONG_LENGTHS})
     fwd.update({f"bound_ms_len{L}": rows[f"len{L}-bf16"]["bound_ms"] for L in LONG_LENGTHS})
@@ -3593,6 +3628,8 @@ def main() -> int:
         **{f"{key}_long193": long193[key] for key in ("ms", "plain_ms", "bound_ms",
                                                       "library_ms", "tflops", "shape")},
         "repeat_bit_identical": long211["repeat_bit_identical"],
+        "cases_phase3": len(report["attention_bwd_long_route"]["cases"]),
+        "launches_phase3": report["attention_bwd_long_route"]["launches"],
         "ptxas": {short: report["build"][short] for short in report["build"]
                   if "stats_mma" in short or "long_mma" in short},
     }

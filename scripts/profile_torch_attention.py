@@ -12,7 +12,8 @@ source, all started together:
 * ``staging_only``: each bf16 kernel moves its operands into shared memory
   and does no math and no stores (the device-memory reads alone; the
   forward's one-pass kernel still waits for every copy and keeps its ring
-  of query tiles turning);
+  of query tiles turning, the backward's fused kernel waits for every copy
+  and skips both phases' tiles);
 * ``math_only``: each bf16 kernel skips the copies (and the waits for them)
   and computes on whatever shared memory holds (the on-chip work and the
   stores).
@@ -22,8 +23,8 @@ CUDA events, in turns (every version twice): the forward's one-pass kernel
 at [384, 129, 768], [192, 129, 768] and STRIDE_SIZE 12's [192, 211, 768]
 (12 heads of 64), and at the same shapes the two-pass kernel that takes
 keys past 256 (launched through its route directly: the design the
-one-pass kernel replaced at these lengths); the fused backward at [192,
-129, 768], and the backward's long route (its statistics and dK/dV
+one-pass kernel replaced at these lengths); the backward's fused kernel at
+[192, 129, 768], and the backward's long route (its statistics and dK/dV
 kernels together) at [192, 211, 768] and a 384×128 input's [192, 193,
 768]. Only the ``as_built`` outputs mean anything; the script also reports
 the share of them that differ from the plain PyTorch version (the rest are
@@ -51,6 +52,10 @@ _STAGED = "  cp_async_wait_all();\n  __syncthreads();\n"
 # last barrier (no block has arrived at it) and its stores
 _RING = "    cp_async_wait<kLongStages - 1>();\n    __syncthreads();\n"
 _LONG_TAIL = "  if (n > 1) {\n    asm volatile(\"barrier.cluster.wait"
+# the backward's fused kernel: the tile loops of its two phases (query
+# tiles, then key tiles)
+_FUSED_PHASES = ("  for (int t = first; t < LQP / kRows; t += workers) {\n",
+                 "  for (int t = workers - 1 - first; t < LKP / kRows; t += workers) {\n")
 # the forward's one-pass kernel: its product Q.K^T, and the softmax, P.V and
 # stores of a query tile
 _ONE_PASS_QK = "    dot_qk(s, Qw + st * slabs * q_slab, q_slab, Ks, kv_slab, HDP, lane);\n"
@@ -63,9 +68,8 @@ _CUTS = {
                               + "  if (Lq > 0) return;\n"),
                              # the one-pass kernel: no products, no softmax, no stores
                              (_ONE_PASS_QK, ""), (_ONE_PASS_REST, "")],
-        "attention_bwd.cu": [("  stage_async(Vs, v + koff, Lk, LKP, hd, D);\n" + _STAGED,
-                              "  stage_async(Vs, v + koff, Lk, LKP, hd, D);\n" + _STAGED
-                              + "  if (Lq > 0) return;\n"),
+        "attention_bwd.cu": [*((loop, loop + "    if (Lq > 0) continue;\n")
+                               for loop in _FUSED_PHASES),
                              (_RING, _RING + "    if (Lq > 0) continue;\n"),
                              (_LONG_TAIL, "  if (Lq > 0) return;\n" + _LONG_TAIL)],
     },
@@ -78,10 +82,11 @@ _CUTS = {
                              ("tma::load_4d", "if (h < 0) tma::load_4d"),
                              ("tma::mbar_expect_tx(", "if (h < 0) tma::mbar_expect_tx("),
                              ("tma::mbar_wait(", "if (h < 0) tma::mbar_wait(")],
-        "attention_bwd.cu": [("  stage_async(Qs, q + qoff, Lq, LQP, hd, D);\n", ""),
-                             ("  stage_async(Gs, g + qoff, Lq, LQP, hd, D);\n", ""),
-                             ("  stage_async(Ks, k + koff, Lk, LKP, hd, D);\n", ""),
-                             ("  stage_async(Vs, v + koff, Lk, LKP, hd, D);\n", ""),
+        "attention_bwd.cu": [# the fused kernel: no TMA copy is issued or
+                             # waited for
+                             ("tma::load_4d", "if (h < 0) tma::load_4d"),
+                             ("tma::mbar_expect_tx(", "if (h < 0) tma::mbar_expect_tx("),
+                             ("tma::mbar_wait(", "if (h < 0) tma::mbar_wait("),
                              # the long route
                              ("  stage_async(Qs, q + qoff, Lq - q0, QR, hd, D);\n", ""),
                              ("  stage_async(Gs, g + qoff, Lq - q0, QR, hd, D);\n", ""),
@@ -140,6 +145,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     from signal_tpu_torch.ops.flash_attention import (
+        BWD_ROUTES,
         FWD_ROUTES,
         flash_attention_bwd_reference,
         flash_attention_reference,
@@ -187,18 +193,19 @@ def main() -> int:
                                       code, B, 12, L, L, 64, 0.125, stream))
         q, k, v, g = data[192]
         grads = [torch.empty_like(q) for _ in range(3)]
-        calls["bwd [192, 129, 768]"] = (
+        calls["bwd fused [192, 129, 768]"] = (
             grads, lambda q=q, k=k, v=v, g=g, grads=grads: bwd.attention_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-                *(t.data_ptr() for t in grads), None, 1, 192, 12, 129, 129, 64, 0.125, stream))
+                *(t.data_ptr() for t in grads), None, BWD_ROUTES["fused"], 192, 12, 129, 129, 64,
+                0.125, stream))
         for L in long_lengths:
             q, k, v, g = long_data[L]
             grads = [torch.empty_like(q) for _ in range(3)]
             calls[f"bwd long [192, {L}, 768]"] = (
                 grads, lambda q=q, k=k, v=v, g=g, grads=grads, L=L: bwd.attention_bwd(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-                    *(t.data_ptr() for t in grads), long_stats[L].data_ptr(), 1, 192, 12, L, L,
-                    64, 0.125, stream))
+                    *(t.data_ptr() for t in grads), long_stats[L].data_ptr(), BWD_ROUTES["long"], 192,
+                    12, L, L, 64, 0.125, stream))
         return calls
 
     versions = {v: launchers(v) for v in libs}

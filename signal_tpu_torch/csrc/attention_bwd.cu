@@ -18,41 +18,58 @@
 // Heads are column blocks hd wide of the [B, L, D] layout, read by stride:
 // there is no transpose.
 //
-// bf16 up to 160 tokens: `attention_bwd_mma_kernel`, one fused kernel on
-// the tensor cores. At the ViT-B shape ([3B/2 = 192, 129, 768], 12 heads of 64) a launch
-// moves 266 MB and does 24.5 GFLOP unpadded, so device memory bounds it
-// (0.080 ms at 3.35 TB/s). The CUDA-core design it replaces did its dots
-// with scalar fmaf, one warp per row, and ran 7 products in two kernels
-// with a statistics scratch: 39x its bound. This one is the TPU kernel's
-// structure: one block per (batch row, head) owns the whole head, runs the
-// 5 products with mma.sync m16n8k16 (bf16 in, fp32 accumulation) and sums
-// every output in a fixed order, without atomics or a second launch.
-//   1. cp.async stages Q, G (Lq x hd) and K, V (Lk x hd) in shared memory,
-//      zero-filled to multiples of 16 rows and columns, rows padded so that
-//      ldmatrix is free of bank conflicts.
-//   2. Warp w takes query rows 16w .. 16w+15 and holds the fp32 S = Q.K^T
-//      and dP = G.V^T of all its keys in registers (16 x 144 each at
-//      L = 129, one pass over hd), does the softmax with quad shuffles
-//      (keys >= Lk masked to -inf; P = e times the reciprocal of sum e;
-//      rows >= Lq zeroed: a zero Q row would give a uniform P), then delta
-//      and dS, and dQ = round(dS).K with round(dS) taken straight from the
-//      registers as A fragments. Past 144 keys (up to 160) S and dP do not
-//      both fit the 168 registers a thread of a 9-10 warp block gets: the
-//      warp holds P and computes dP by pairs of key tiles twice, once for
-//      delta and once for dS.
-//   3. After a barrier, round(P) and round(dS) go to shared memory in the
-//      place K and V held, so the peak is Q, G, P and dS (129 KB at the main
-//      shape; 190 KB at hd = 128, L = 160).
-//   4. Warp w takes key rows 16w .. 16w+15: dV = round(P)^T.G and
-//      dK = round(dS)^T.Q, both operands through ldmatrix.trans.
-// A warp holds one 16-row tile in each phase and a whole key row in
-// registers, so this route takes Lq, Lk <= 16 kMmaWarps (160); its shared
-// memory (Q, G, round(P), round(dS) resident together) would not stretch
-// far beyond either: 234 KB at L = 193, hd 64, against the 227 KB a block
-// may have. One block fills an SM (shared memory and registers), so its
-// staging and its math do not overlap: at the main shape the math is most
-// of the time. wgmma/TMA and a persistent grid that stages the next head
-// during this one's math are later work.
+// bf16 up to 160 tokens either way (every shipped shape at 129 tokens; the
+// caller routes by length, ops/flash_attention.bwd_route):
+// `attention_bwd_fused_kernel`, one kernel on the tensor cores (mma.sync
+// m16n8k16, bf16 in, fp32 accumulation). At the flagship step's shape
+// ([3B/2 = 192, 129, 768], 12 heads of 64) a launch moves 266 MB and does
+// 24.5 GFLOP of the 5 products unpadded, so device memory bounds it (0.080
+// ms at 3.35 TB/s); what holds it above that is on-chip latency. One block
+// (of up to 4 warps) owns a head, or a thread-block cluster of up to 8
+// blocks when the heads are fewer than 2 an SM (pipeline microbatches),
+// and sums every output in a fixed order, without atomics or a second
+// launch: two launches give the same bits.
+//   1. TMA stages the head's Q, K, G and V (box {64, 1, 16, 1} of a 4-D map
+//      {hd, H, L, B}, the 128-byte swizzle of tma.cuh, rows past L and
+//      columns past hd zero-filled), each operand on its own mbarrier, so S
+//      starts once Q and K are in while G and V are in flight. No padding:
+//      74 KB at the main shape with the rows' statistics and barriers (76.6
+//      KB a block), so three blocks share an SM, and one head's copies run
+//      under two others' math.
+//   2. Phase 1, query-major: warp w takes query tiles w, w + 4, ... (16
+//      rows) and holds S = Q.K^T and dP = G.V^T of its whole key row in
+//      registers (17 n-tiles of 8 keys up to 136 keys, the ViT's 129; 20
+//      up to 160); the fp32 softmax P = 2^(s - m) . (1 / sum) on logits
+//      pre-scaled by scale.log2(e) (ex2.approx.ftz; keys >= Lk masked to
+//      -inf by selects; rows >= Lq get 1/sum = 0, so a zero Q row's uniform P
+//      cannot leak into dK and dV); delta = rowsum(dP o P) from the fp32
+//      dP and P; dS = P o (dP - delta) rounded once into A fragments for dQ
+//      = round(dS).K. Each row's max, 1/sum and delta go to shared memory
+//      (to every block of a cluster), and the tile's mbarrier is arrived.
+//   3. Phase 2, key-major, with no block barrier between the phases: warp
+//      w takes key tiles in the reverse order of the workers, so the warps
+//      with the fewest query tiles take the most key tiles, and walks the
+//      queries two chunks of 16 at a time, waiting on each query tile's
+//      barrier as it reaches it. It forms S^T = K.Q^T and dP^T = V.G^T again
+//      (the same products, operands swapped), P and dS from the rows'
+//      statistics, and feeds round(P)^T and round(dS)^T from its registers
+//      as A fragments into dV += round(P)^T.G and dK += round(dS)^T.Q. No P
+//      or dS goes through shared memory: 7 products where the TPU kernel
+//      does 5, because round(P) and round(dS) of a head (83 KB at 144 x 144)
+//      cannot sit beside three heads' operands.
+// Every n-tile of the unrolled math is computed: rows past the keys are
+// zero in shared memory (TMA's fill, and zeroed rows up to the register
+// row), and the masks are selects. A block's registers are allocated by 4
+// warps, so three blocks of 4 warps an SM at 168 registers a thread.
+// Measured alternatives (scripts/variants_torch_attention.py --bwd;
+// PERF.md): a branch per n-tile, expf, one barrier for all operands, two
+// blocks an SM, three warps a block, a block barrier between the phases,
+// the same tile order in both phases, one chunk a step, a register row of
+// 144 keys; the design this one replaces (one block of 9 warps an SM,
+// cp.async then the math, round(P) and round(dS) through shared memory)
+// ran 1.6x slower. A persistent grid with a producer warp was not built:
+// with three resident blocks the copies already hide (1.10x the math-only
+// time; scripts/profile_torch_attention.py).
 //
 // bf16 past 160 tokens (MODEL.STRIDE_SIZE 12 gives L = 211, a 384x128
 // input 193): the long route, two tensor-core kernels (mma.sync) with the
@@ -125,6 +142,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -398,217 +416,538 @@ int launch_fp32(const void* q, const void* k, const void* v, const void* g, void
   return (int)cudaGetLastError();
 }
 
-// ---- bf16: the fused tensor-core kernel ----------------------------------
+// ---- bf16 up to 160 tokens: the fused kernel, operands by TMA --------------
 
 using mma::bf16;
 
-constexpr int kMmaWarps = 10;                 // 16-row tiles per block
-constexpr int kMmaMaxLen = 16 * kMmaWarps;    // Lq, Lk it takes
-// key n-tiles of 8 that a warp holds as S and dP together: 144 keys cover
-// the ViT's 129. Up to kMmaMaxLen keys it holds P and recomputes dP.
-constexpr int kRowTiles = 18;
+constexpr int kFusedMaxLen = 160;   // Lq, Lk the fused kernel takes
+// tile workers a block, at most: a block's registers are allocated by 4
+// warps, so 3 blocks of 4 warps an SM at 168 registers a thread
+constexpr int kFusedMaxWarps = 4;
+constexpr int kFusedFill = 2;       // fewer heads than this many an SM: a cluster a head
+constexpr int kRows = 16;           // rows of a tile, and of every TMA box
+// bytes of 16 rows of one slab: a TMA box, and the step between tiles
+constexpr uint32_t kBoxBytes = kRows * tma::kSlab * sizeof(bf16);
+// barriers: one for each operand's copies, then one for each query tile's
+// statistics (at most kFusedMaxLen / kRows tiles)
+enum { kBarQ, kBarK, kBarG, kBarV, kBars, kTileBars = kFusedMaxLen / kRows };
 
-// Shared memory (dynamic), in this order:
-//   Qs, Gs  [round16(Lq)][padded(hd)]      the whole kernel
-//   Ks, Vs  [round16(Lk)][padded(hd)]      phase 1, then in their place
-//   Ps, dSs [round16(Lq)][padded(Lk)]      phase 2: round(P), round(dS)
-size_t mma_smem_bytes(int Lq, int Lk, int hd) {
-  const size_t qg = 2 * (size_t)mma::round16(Lq) * mma::padded(hd);
-  const size_t kv = 2 * (size_t)mma::round16(Lk) * mma::padded(hd);
-  const size_t pds = 2 * (size_t)mma::round16(Lq) * mma::padded(Lk);
-  return (qg + (kv > pds ? kv : pds)) * sizeof(bf16);
+// n-tiles of 8 keys in a warp's register row: 17 up to 136 keys (the
+// ViT's 129: no n-tile of padding only), 20 up to 160. A staged tile has
+// round16(8 NT) rows (144 or 160), so NT 17 takes Lq <= 144.
+__host__ __device__ constexpr int fused_nt(int Lq, int Lk) {
+  return Lk <= 136 && mma::round16(Lq) <= 144 ? 17 : 20;
 }
 
-// NT: key n-tiles of 8 a warp holds in registers (8 NT >= round16(Lk))
-template <int NT>
-__global__ void __launch_bounds__(kMmaWarps * 32, 1)
-attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ g,
-                         bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                         int H, int Lq, int Lk, int hd, float scale) {
-  using namespace mma;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int LQP = round16(Lq), LKP = round16(Lk), HDP = round16(hd);
-  const int so = padded(hd), sp = padded(Lk);
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Gs = Qs + LQP * so;
-  bf16* Ks = Gs + LQP * so;
-  bf16* Vs = Ks + LKP * so;
-  bf16* Ps = Ks;
-  bf16* dSs = Ps + LQP * sp;
+// Shared memory of a block (dynamic, 1024-aligned by hand), at offsets
+// fixed by the instance (KR = round16(8 NT) rows, HN / 8 slabs of 64
+// columns), in this order, each tile in swizzled slabs:
+//   Qs, Gs, Ks, Vs  [slabs][KR][64]   rows of K and V past the keys zero
+//   stats   [3][KR] fp32     each query row's max of the base-2 logits,
+//                            1 / sum e (0 past Lq), delta
+//   barriers: Q, K, G, V; the query tiles' statistics
+template <int NT, int HN>
+struct FusedLayout {
+  static constexpr int kRowsStaged = (8 * NT + 15) / 16 * 16;   // KR
+  static constexpr int kSlabElems = kRowsStaged * tma::kSlab;   // of one slab of a tile
+  static constexpr int kTile = (HN / 8) * kSlabElems;           // elements of a tile
+  static constexpr int kStats = kRowsStaged;                    // floats an array
+  static constexpr size_t kBytes = 4 * kTile * sizeof(bf16) + 3 * kStats * sizeof(float) +
+                                   (kBars + kTileBars) * sizeof(uint64_t);
+};
 
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x - b * H;
-  const int D = H * hd;
-  const size_t qoff = (size_t)b * Lq * D + (size_t)h * hd;
-  const size_t koff = (size_t)b * Lk * D + (size_t)h * hd;
-  stage_async(Qs, q + qoff, Lq, LQP, hd, D);
-  stage_async(Gs, g + qoff, Lq, LQP, hd, D);
-  stage_async(Ks, k + koff, Lk, LKP, hd, D);
-  stage_async(Vs, v + koff, Lk, LKP, hd, D);
-  cp_async_wait_all();
-  __syncthreads();
+size_t fused_smem_bytes(int Lq, int Lk, int hd) {
+  const bool wide = mma::round16(hd) > 64;
+  const size_t body = fused_nt(Lq, Lk) == 17
+                          ? (wide ? FusedLayout<17, 16>::kBytes : FusedLayout<17, 8>::kBytes)
+                          : (wide ? FusedLayout<20, 16>::kBytes : FusedLayout<20, 8>::kBytes);
+  return 1024 + body;
+}
+
+// 2^x on the SFU (ex2.approx, 2 ulp, as exp2f), results below 2^-126
+// flushed to zero: exp2f's extra instructions for those cost the fused
+// kernel about 2 %, and a P under 1e-38 is no term of any bf16 output
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// logits of a fragment in base 2: s * scale * log2(e), rounded on its own
+// (never fused into the next subtraction, so that both phases of the fused
+// kernel, and both kernels of the long route, form the same value from the
+// same product), masked to -inf where `live` is false
+__device__ __forceinline__ float logit2(float s, float scale2, bool live) {
+  return live ? __fmul_rn(s, scale2) : -CUDART_INF_F;
+}
+
+// acc[2 JP0 .. min(2 JP1, NT)) = A.B^T for one 16-row tile of A (at At:
+// its rows in a swizzled tile whose slabs are SLAB elements apart) against
+// rows 16 JP0 .. of the swizzled tile Bt: every n-tile, no branch (the
+// rows of Bt past its length are zero). HN / 2 k-steps: the columns past
+// hd are zero in both tiles.
+template <int JP0, int JP1, int HN, int SLAB, int NT>
+__device__ __forceinline__ void fused_dot_rows(float (&acc)[NT][4], const bf16* At, const bf16* Bt,
+                                               int lane) {
+  using namespace mma;
+#pragma unroll
+  for (int j = 2 * JP0; j < 2 * JP1 && j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll 1  // unrolled, its loads would be hoisted into spilled registers
+  for (int kc = 0; kc < HN * 8; kc += 16) {
+    uint32_t a[4];
+    ldsm_x4(a, tma::swz(At, SLAB, lane & 15, kc + (lane >> 4) * 8));
+    // the lane's row of n-tile pair jp is 16 jp on from pair 0's, with the
+    // same swizzle (16 jp % 8 == 0): one address, constant offsets
+    const bf16* bb = tma::swz(Bt, SLAB, (lane & 7) + (lane >> 4) * 8, kc + ((lane >> 3) & 1) * 8);
+#pragma unroll
+    for (int jp = JP0; jp < JP1; ++jp) {
+      uint32_t b[4];
+      ldsm_x4(b, bb + jp * 16 * tma::kSlab);
+      mma16816(acc[2 * jp], a, b[0], b[1]);
+      if (2 * jp + 1 < NT) mma16816(acc[2 * jp + 1], a, b[2], b[3]);  // an odd NT's last
+    }
+  }
+}
+
+// Byte offset of element (r, c) in a swizzled tile whose slabs are `slab`
+// elements apart (tma::swz); c is a multiple of 8. Rows 16 i further on
+// lie 16 i * 128 bytes further, with the same swizzle.
+__device__ __forceinline__ uint32_t swz_bytes(int slab, int r, int c) {
+  return (uint32_t)(2 * ((c >> 6) * slab + r * tma::kSlab + ((((c >> 3) & 7) ^ (r & 7)) << 3)));
+}
+
+// A phase-2 lane's offsets into the swizzled tiles, taken once: the A
+// fragment of a 16-row tile of K or V at k-step ks, the B fragment of 16
+// rows of Q or G (stored [n][k]) at k-step ks, and the B fragment of 16
+// rows of G or Q stored [k][n] (ldmatrix.trans) at column step np
+template <int HN, int SLAB>
+struct KeyLanes {
+  uint32_t a[HN / 2], b[HN / 2], t[HN / 2];
+  __device__ __forceinline__ explicit KeyLanes(int lane) {
+#pragma unroll
+    for (int i = 0; i < HN / 2; ++i) {
+      a[i] = swz_bytes(SLAB, lane & 15, i * 16 + (lane >> 4) * 8);
+      b[i] = swz_bytes(SLAB, (lane & 7) + (lane >> 4) * 8, i * 16 + ((lane >> 3) & 1) * 8);
+      t[i] = swz_bytes(SLAB, (lane & 7) + ((lane >> 3) & 1) * 8, i * 16 + (lane >> 4) * 8);
+    }
+  }
+};
+
+// Element offset of row `row` of this block's head in a [B, L, H * hd]
+// tensor. Recomputed from blockIdx where a store needs it: kept live through
+// the phases, the batch row and head would take registers from the math.
+__device__ __forceinline__ size_t fused_head_off(int cluster, int H, int hd, int L, int row) {
+  const int head = blockIdx.x / cluster;
+  return ((size_t)(head / H) * L + row) * H * hd + (size_t)(head % H) * hd;
+}
+
+// Rows `row` and `row + 8` of one statistics array (at st), written by the
+// quad's first lane into every block of the cluster
+__device__ __forceinline__ void push_stats(float* st, int cluster, int row, const float (&a)[2],
+                                           int tq) {
+  namespace cg = cooperative_groups;
+  if (tq != 0) return;
+  for (int r = 0; r < cluster; ++r) {
+    float* dst = cluster > 1 ? cg::this_cluster().map_shared_rank(st, r) : st;
+    dst[row] = a[0];
+    dst[row + 8] = a[1];
+  }
+}
+
+// Phase 2's step: NC chunks of 16 queries (q0, q0 + 16, ...) against the
+// warp's 16 keys (at row k0 of Ks, Vs), interleaved. S^T = K.Q^T and dP^T =
+// V.G^T (the same products as phase 1, operands swapped), P = 2^(s - m) /
+// l and dS = P o (dP - delta) from the rows' statistics, round(P)^T and
+// round(dS)^T from the registers as A fragments: dV += round(P)^T.G, dK +=
+// round(dS)^T.Q.
+template <int NC, int NT, int HN>
+__device__ __forceinline__ void fused_key_step(float (&av)[HN][4], float (&ak)[HN][4],
+                                               const KeyLanes<HN, FusedLayout<NT, HN>::kSlabElems>& ln,
+                                               uint32_t sQ, uint32_t sG, uint32_t kv_row,
+                                               uint32_t sK, uint32_t sV, const float* st_lane,
+                                               int q0, const bool (&live)[2], float sl2) {
+  using namespace mma;
+  using L = FusedLayout<NT, HN>;
+  const uint32_t q_row = (uint32_t)q0 / kRows * kBoxBytes;
+  float st[NC][2][4] = {}, dt[NC][2][4] = {};
+#pragma unroll
+  for (int ks = 0; ks < HN / 2; ++ks) {
+    // the tile's K and V fragments of the k-step, shared by the NC chunks
+    // (held for the whole tile they would take 8 HN more registers)
+    uint32_t fk[4], fv[4];
+    ldsm_x4(fk, sK + kv_row + ln.a[ks]);
+    ldsm_x4(fv, sV + kv_row + ln.a[ks]);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      uint32_t bq[4], bg[4];
+      ldsm_x4(bq, sQ + q_row + c * kBoxBytes + ln.b[ks]);
+      ldsm_x4(bg, sG + q_row + c * kBoxBytes + ln.b[ks]);
+      mma16816(st[c][0], fk, bq[0], bq[1]);
+      mma16816(st[c][1], fk, bq[2], bq[3]);
+      mma16816(dt[c][0], fv, bg[0], bg[1]);
+      mma16816(dt[c][1], fv, bg[2], bg[3]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    uint32_t ap[4], as[4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float* stj = st_lane + q0 + 16 * c + 8 * j;  // the lane's two queries
+      const float2 mm = *reinterpret_cast<const float2*>(stj);
+      const float2 iv = *reinterpret_cast<const float2*>(stj + L::kStats);
+      const float2 dl = *reinterpret_cast<const float2*>(stj + 2 * L::kStats);
+      float p[4], d[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool hi = e & 1;
+        p[e] = ex2_ftz(logit2(st[c][j][e], sl2, live[e >> 1]) - (hi ? mm.y : mm.x)) *
+               (hi ? iv.y : iv.x);
+        d[e] = p[e] * (dt[c][j][e] - (hi ? dl.y : dl.x));
+      }
+      ap[2 * j] = pack(p[0], p[1]);
+      ap[2 * j + 1] = pack(p[2], p[3]);
+      as[2 * j] = pack(d[0], d[1]);
+      as[2 * j + 1] = pack(d[2], d[3]);
+    }
+    // dV += round(P)^T.G, dK += round(dS)^T.Q over the chunk's 16 queries
+#pragma unroll
+    for (int np = 0; np < HN / 2; ++np) {
+      uint32_t bgt[4], bqt[4];
+      ldsm_x4_t(bgt, sG + q_row + c * kBoxBytes + ln.t[np]);
+      ldsm_x4_t(bqt, sQ + q_row + c * kBoxBytes + ln.t[np]);
+      mma16816(av[2 * np], ap, bgt[0], bgt[1]);
+      mma16816(av[2 * np + 1], ap, bgt[2], bgt[3]);
+      mma16816(ak[2 * np], as, bqt[0], bqt[1]);
+      mma16816(ak[2 * np + 1], as, bqt[2], bqt[3]);
+    }
+  }
+}
+
+// One block per (head, rank in the head's cluster), `cluster` blocks a head.
+// Worker w = rank * warps + warp takes the head's 16-row query tiles w, w +
+// cluster * warps, ... in phase 1 and its key tiles in the reverse order of
+// the workers in phase 2. NT: key n-tiles of a phase-1 register row (8 NT
+// >= round16(Lq), round16(Lk)); HN: n-tiles of 8 of the head dim (8 up to
+// hd 64, 16 up to 128).
+template <int NT, int HN, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kFusedMaxWarps * 32, MIN_BLOCKS)
+attention_bwd_fused_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const __grid_constant__ CUtensorMap gmap, bf16* __restrict__ dq,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Lq, int Lk,
+                           int hd, float scale, int cluster) {
+  using namespace mma;
+  using L = FusedLayout<NT, HN>;
+  constexpr int KR = L::kRowsStaged;  // rows of every staged tile
+  constexpr int SLAB = L::kSlabElems;
+  extern __shared__ unsigned char smem_raw[];
+  const int LQP = round16(Lq), LKP = round16(Lk);
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw + ((1024 - (tma::saddr(smem_raw) & 1023)) & 1023));
+  bf16* Gs = Qs + L::kTile;
+  bf16* Ks = Gs + L::kTile;
+  bf16* Vs = Ks + L::kTile;
+  float* stats = reinterpret_cast<float*>(Vs + L::kTile);  // m, 1/l, delta
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stats + 3 * L::kStats);
+  uint64_t* tile_bars = bars + kBars;  // a query tile's statistics are in
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int gr = lane >> 2;
   const int tq = lane & 3;
-  const int nkt = LKP / 16;             // key k-steps of 16
-  const int r0 = warp * 16;             // the warp's query rows (phase 1)
-  uint32_t pb[NT][2], sb[NT][2];        // round(P), round(dS): rows gr, gr + 8
+  const int warps = blockDim.x >> 5;
+  const int rank = cluster > 1 ? tma::cluster_rank() : 0;
+  const int head = blockIdx.x / cluster;
+  const int b = head / H;
+  const int h = head - b * H;
+  const int D = H * hd;
 
-  if (r0 < LQP) {
-    // P: the fp32 softmax of the logits, rows >= Lq zeroed (a zero-filled
-    // Q row has logits 0, hence a uniform P that would leak into dK, dV)
-    float s[NT][4], dp[NT][4];
-    if constexpr (NT <= kRowTiles)
-      dot_nt2(s, dp, Qs, Ks, Gs, Vs, so, r0, LKP, HDP, lane);
-    else
-      dot_nt(s, Qs, Ks, so, r0, 0, LKP, HDP, lane);
-    scale_mask(s, 0, Lk, scale, lane);
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      if (j >= 2 * nkt) continue;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kBars; ++i) tma::mbar_init(bars + i, 1);
+    for (int i = 0; i < kTileBars; ++i) tma::mbar_init(tile_bars + i, 32);  // a warp
+    tma::fence_barrier_init();
+  }
+  // the rows of K and V past the keys, which no copy writes, to zero
+  const int pad = (KR - LKP) * (tma::kSlab / 8);  // 16-byte units a slab
+  for (int x = threadIdx.x; x < 2 * (HN / 8) * pad; x += blockDim.x) {
+    const int slab = x / pad;  // K's slabs, then V's (V follows K)
+    *reinterpret_cast<uint4*>(Ks + slab * SLAB + LKP * tma::kSlab + (x - slab * pad) * 8) =
+        make_uint4(0, 0, 0, 0);
+  }
+  __syncthreads();
+  // every block of the cluster runs before a peer writes its statistics
+  if (cluster > 1) tma::cluster_sync();
+
+  // The head's Q, K, G and V, box by box, each operand on its own barrier:
+  // S = Q.K^T starts once Q and K are in, while G and V are in flight.
+  // Every box is 16 rows of one slab; rows past L are zero-filled and count.
+  const int qboxes = (HN / 8) * (LQP / kRows), kboxes = (HN / 8) * (LKP / kRows);
+  if (warp == 0) {
+    if (lane == 0) {
+      tma::mbar_expect_tx(bars + kBarQ, qboxes * kBoxBytes);
+      tma::mbar_expect_tx(bars + kBarK, kboxes * kBoxBytes);
+      tma::mbar_expect_tx(bars + kBarG, qboxes * kBoxBytes);
+      tma::mbar_expect_tx(bars + kBarV, kboxes * kBoxBytes);
     }
-    mx[0] = quad_max(mx[0]);
-    mx[1] = quad_max(mx[1]);
+    __syncwarp();
+    // boxes in the order Q, K, G, V; lane i issues boxes i, i + 32, ...
+    for (int j = lane; j < 2 * (qboxes + kboxes); j += 32) {
+      const int op = j < qboxes ? kBarQ : j < qboxes + kboxes ? kBarK
+                     : j < 2 * qboxes + kboxes ? kBarG : kBarV;
+      const bool is_q = op == kBarQ || op == kBarG;
+      const int jj = j - (op == kBarQ ? 0 : op == kBarK ? qboxes
+                          : op == kBarG ? qboxes + kboxes : 2 * qboxes + kboxes);
+      const int per_slab = (is_q ? LQP : LKP) / kRows;
+      const int slab = jj / per_slab;
+      const int row = (jj - slab * per_slab) * kRows;
+      bf16* dst = op == kBarQ ? Qs : op == kBarK ? Ks : op == kBarG ? Gs : Vs;
+      const CUtensorMap* map = op == kBarQ ? &qmap : op == kBarK ? &kmap
+                               : op == kBarG ? &gmap : &vmap;
+      tma::load_4d(dst + slab * SLAB + row * tma::kSlab, map, bars + op, slab * tma::kSlab, h,
+                   row, b);
+    }
+  }
+
+  const int workers = cluster * warps;
+  const int first = rank * warps + warp;
+  const float sl2 = scale * 1.4426950408889634f;  // scale log2(e)
+
+  // Phase 1, query-major: warp tile of 16 query rows against all the keys.
+  // S and dP of the whole key row in registers; P, delta, dS in fp32; dQ =
+  // round(dS).K with round(dS) straight from the registers as A fragments.
+  for (int t = first; t < LQP / kRows; t += workers) {
+    const int r0 = t * kRows;
+    tma::mbar_wait(bars + kBarQ, 0);
+    tma::mbar_wait(bars + kBarK, 0);
+    float s[NT][4];
+    fused_dot_rows<0, (NT + 1) / 2, HN, SLAB>(s, Qs + r0 * tma::kSlab, Ks, lane);
+    // P = 2^(s - m) . (1 / sum): exp(logit - max) on the SFU's ex2, keys >=
+    // Lk at -inf by selects; rows >= Lq get 1/sum = 0, hence P = 0 (a zero
+    // Q row has logits 0, hence a uniform P that would leak into dK, dV)
+    const int lim = Lk - 2 * tq;
+    float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      if (j >= 2 * nkt) continue;
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[j][e] = expf(s[j][e] - mx[e >> 1]);
-        sum[e >> 1] += s[j][e];
+        s[j][e] = logit2(s[j][e], sl2, j * 8 + (e & 1) < lim);
+        m[e >> 1] = fmaxf(m[e >> 1], s[j][e]);
       }
-    }
-    const bool live[2] = {r0 + gr < Lq, r0 + gr + 8 < Lq};
+    float inv[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) m[i] = quad_max(m[i]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = ex2_ftz(s[j][e] - m[e >> 1]);
+        inv[e >> 1] += s[j][e];
+      }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      sum[i] = quad_sum(sum[i]);  // every lane shuffles, dead rows too
-      sum[i] = live[i] ? 1.f / sum[i] : 0.f;
+      inv[i] = quad_sum(inv[i]);  // every lane shuffles, dead rows too
+      inv[i] = r0 + gr + 8 * i < Lq ? 1.f / inv[i] : 0.f;
     }
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] *= sum[e >> 1];
+      for (int e = 0; e < 4; ++e) s[j][e] *= inv[e >> 1];
+    // the rows' statistics, into every block of the cluster, for phase 2
+    // (the max and 1/sum now: their registers are free for dP's)
+    push_stats(stats, cluster, r0 + gr, m, tq);
+    push_stats(stats + L::kStats, cluster, r0 + gr, inv, tq);
 
-    // dP = G . V^T in fp32, delta = rowsum(dP o P), dS = P o (dP - delta)
+    // dP = G.V^T in fp32; delta = rowsum(dP o P); dS = P o (dP - delta),
+    // rounded once into the A fragments of dQ's k-steps
+    tma::mbar_wait(bars + kBarG, 0);
+    tma::mbar_wait(bars + kBarV, 0);
+    float dp[NT][4];
+    // in two halves of the keys: fewer fragments in flight beside P
+    fused_dot_rows<0, NT / 4, HN, SLAB>(dp, Gs + r0 * tma::kSlab, Vs, lane);
+    fused_dot_rows<NT / 4, (NT + 1) / 2, HN, SLAB>(dp, Gs + r0 * tma::kSlab, Vs, lane);
     float delta[2] = {0.f, 0.f};
-    if constexpr (NT <= kRowTiles) {
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        if (j >= 2 * nkt) continue;
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) delta[e >> 1] = fmaf(dp[j][e], s[j][e], delta[e >> 1]);
-      }
-      delta[0] = quad_sum(delta[0]);
-      delta[1] = quad_sum(delta[1]);
+      for (int e = 0; e < 4; ++e) delta[e >> 1] = fmaf(dp[j][e], s[j][e], delta[e >> 1]);
+    delta[0] = quad_sum(delta[0]);
+    delta[1] = quad_sum(delta[1]);
+    // (an odd NT's last k-step takes zeros for its second n-tile: keys past
+    // 8 NT, which K holds as zero rows)
+    uint32_t ds[(NT + 1) / 2][4];
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        sb[j][0] = pack(s[j][0] * (dp[j][0] - delta[0]), s[j][1] * (dp[j][1] - delta[0]));
-        sb[j][1] = pack(s[j][2] * (dp[j][2] - delta[1]), s[j][3] * (dp[j][3] - delta[1]));
-      }
-    } else {
-      // P and dP together do not fit the registers: dP by pairs of
-      // n-tiles, once for delta and once more for dS
+    for (int kp = 0; kp < (NT + 1) / 2; ++kp)
 #pragma unroll
-      for (int jp = 0; jp < NT / 2; ++jp) {
-        if (jp >= nkt) continue;
-        float d[2][4];
-        dot_nt(d, Gs, Vs, so, r0, jp * 16, LKP, HDP, lane);
-#pragma unroll
-        for (int t = 0; t < 2; ++t)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            delta[e >> 1] = fmaf(d[t][e], s[2 * jp + t][e], delta[e >> 1]);
-      }
-      delta[0] = quad_sum(delta[0]);
-      delta[1] = quad_sum(delta[1]);
-#pragma unroll
-      for (int jp = 0; jp < NT / 2; ++jp) {
-        if (jp >= nkt) continue;
-        float d[2][4];
-        dot_nt(d, Gs, Vs, so, r0, jp * 16, LKP, HDP, lane);
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          const int j = 2 * jp + t;
-          sb[j][0] = pack(s[j][0] * (d[t][0] - delta[0]), s[j][1] * (d[t][1] - delta[0]));
-          sb[j][1] = pack(s[j][2] * (d[t][2] - delta[1]), s[j][3] * (d[t][3] - delta[1]));
+      for (int t2 = 0; t2 < 2; ++t2) {
+        const int j = 2 * kp + t2;
+        if (j >= NT) {
+          ds[kp][2 * t2] = ds[kp][2 * t2 + 1] = 0u;
+          continue;
         }
+        ds[kp][2 * t2] = pack(s[j][0] * (dp[j][0] - delta[0]), s[j][1] * (dp[j][1] - delta[0]));
+        ds[kp][2 * t2 + 1] =
+            pack(s[j][2] * (dp[j][2] - delta[1]), s[j][3] * (dp[j][3] - delta[1]));
       }
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      pb[j][0] = pack(s[j][0], s[j][1]);
-      pb[j][1] = pack(s[j][2], s[j][3]);
-    }
+    // delta (once P and dP are dead); one block a head: the tile's
+    // statistics are in, for phase 2's warps
+    push_stats(stats + 2 * L::kStats, cluster, r0 + gr, delta, tq);
+    __syncwarp();
+    if (cluster == 1) tma::mbar_arrive(tile_bars + t);
 
-    // dQ = round(dS) . K, scaled after the dot: round(dS) straight from the
-    // registers as A fragments, K through ldmatrix.trans
-    for (int c0 = 0; c0 < HDP; c0 += kColTile) {
+    // dQ = round(dS).K, scaled after the dot, by output tiles of 64 columns
+    bf16* dq_tile = dq + fused_head_off(cluster, H, hd, Lq, r0);
+#pragma unroll 1
+    for (int c0 = 0; c0 < HN * 8; c0 += kColTile) {
       float acc[kColTile / 8][4] = {};
+      uint32_t kb[kColTile / 16];  // K as [k][n] (ldmatrix.trans), key step 0
 #pragma unroll
-      for (int kp = 0; kp < NT / 2; ++kp) {
-        if (kp >= nkt) continue;
-        const uint32_t a[4] = {sb[2 * kp][0], sb[2 * kp][1], sb[2 * kp + 1][0],
-                               sb[2 * kp + 1][1]};
-        dot_cols(acc, a, Ks, so, kp * 16, c0, HDP, lane);
-      }
-      store_tile(dq + qoff + c0, D, r0, Lq, hd - c0, acc, scale, lane);
+      for (int np = 0; np < kColTile / 16; ++np)
+        kb[np] = tma::saddr(Ks) + swz_bytes(SLAB, (lane & 7) + ((lane >> 3) & 1) * 8,
+                                            c0 + np * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int kp = 0; kp < (NT + 1) / 2; ++kp)
+#pragma unroll
+        for (int np = 0; np < kColTile / 16; ++np) {
+          uint32_t bb[4];
+          ldsm_x4_t(bb, kb[np] + kp * kBoxBytes);
+          mma16816(acc[2 * np], ds[kp], bb[0], bb[1]);
+          mma16816(acc[2 * np + 1], ds[kp], bb[2], bb[3]);
+        }
+      store_tile(dq_tile + c0, D, 0, Lq - r0, hd - c0, acc, scale, lane);
     }
   }
 
-  __syncthreads();  // K and V are dead: round(P) and round(dS) take their place
-  if (r0 < LQP) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      if (j >= 2 * nkt) continue;
-      const int col = j * 8 + 2 * tq;
-      *reinterpret_cast<uint32_t*>(Ps + (r0 + gr) * sp + col) = pb[j][0];
-      *reinterpret_cast<uint32_t*>(Ps + (r0 + gr + 8) * sp + col) = pb[j][1];
-      *reinterpret_cast<uint32_t*>(dSs + (r0 + gr) * sp + col) = sb[j][0];
-      *reinterpret_cast<uint32_t*>(dSs + (r0 + gr + 8) * sp + col) = sb[j][1];
-    }
-  }
-  __syncthreads();
+  // a cluster: every row's statistics are in every block once all its
+  // blocks are here; one block: phase 2 waits on each query tile's barrier
+  // as it reaches it, so a warp done with phase 1 goes on at once
+  if (cluster > 1) tma::cluster_sync();
+  for (int i = 0; i < kBars; ++i) tma::mbar_wait(bars + i, 0);
 
-  // dV = round(P)^T . G and dK = round(dS)^T . Q for the warp's key rows;
-  // both operands through ldmatrix.trans
-  const int k0 = warp * 16;
-  if (k0 >= LKP) return;
-  for (int c0 = 0; c0 < HDP; c0 += kColTile) {
-    float av[kColTile / 8][4] = {}, ak[kColTile / 8][4] = {};
-    for (int kq = 0; kq < LQP; kq += 16) {
-      uint32_t ap[4], as[4];
-      ldsm_x4_t(ap, a_cols(Ps, sp, kq, k0, lane));
-      ldsm_x4_t(as, a_cols(dSs, sp, kq, k0, lane));
-      dot_cols(av, ap, Gs, so, kq, c0, HDP, lane);
-      dot_cols(ak, as, Qs, so, kq, c0, HDP, lane);
+  // Phase 2, key-major: warp tile of 16 keys against the queries, two
+  // chunks of 16 at a time (fused_key_step). No P or dS goes through
+  // shared memory. Key tiles in the reverse order of the workers: the warps
+  // with fewest query tiles take the most key tiles.
+  const KeyLanes<HN, SLAB> lanes(lane);
+  const uint32_t sQ = tma::saddr(Qs), sG = tma::saddr(Gs), sK = tma::saddr(Ks),
+                 sV = tma::saddr(Vs);
+  for (int t = workers - 1 - first; t < LKP / kRows; t += workers) {
+    const int k0 = t * kRows;
+    const bool live[2] = {k0 + gr < Lk, k0 + gr + 8 < Lk};
+    float av[HN][4] = {}, ak[HN][4] = {};
+    // up to hd 64 two chunks a step (past it, one: registers; three at hd
+    // 64 ran as fast but spilled)
+    constexpr int kStep = HN == 8 ? 2 : 1;
+    int q0 = 0;
+#pragma unroll 1
+    for (; q0 + kStep * kRows <= LQP; q0 += kStep * kRows) {
+      if (cluster == 1)
+        for (int c = 0; c < kStep; ++c) tma::mbar_wait(tile_bars + q0 / kRows + c, 0);
+      fused_key_step<kStep, NT, HN>(av, ak, lanes, sQ, sG, t * kBoxBytes, sK, sV,
+                                    stats + 2 * tq, q0, live, sl2);
     }
-    store_tile(dv + koff + c0, D, k0, Lk, hd - c0, av, 1.f, lane);
-    store_tile(dk + koff + c0, D, k0, Lk, hd - c0, ak, scale, lane);
+#pragma unroll 1
+    for (; q0 < LQP; q0 += kRows) {  // the chunks short of a whole step
+      if (cluster == 1) tma::mbar_wait(tile_bars + q0 / kRows, 0);
+      fused_key_step<1, NT, HN>(av, ak, lanes, sQ, sG, t * kBoxBytes, sK, sV,
+                                stats + 2 * tq, q0, live, sl2);
+    }
+    const size_t koff = fused_head_off(cluster, H, hd, Lk, k0);
+    store_tile(dv + koff, D, 0, Lk - k0, hd, av, 1.f, lane);
+    store_tile(dk + koff, D, 0, Lk - k0, hd, ak, scale, lane);
   }
 }
 
-template <int NT>
-int launch_mma(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
-               void* dv, int B, int H, int Lq, int Lk, int hd, float scale,
-               cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes(Lq, Lk, hd);
-  const cudaError_t err = cudaFuncSetAttribute(attention_bwd_mma_kernel<NT>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem);
+struct FusedShape {
+  int cluster, warps;
+};
+
+// Workers for a launch: up to kFusedMaxWarps a block, each with the same
+// number of tiles as far as the tiles allow; one block a head while the
+// heads fill the card kFusedFill times over, else a cluster of up to 8
+// blocks a head, which share out its query and key tiles.
+FusedShape fused_shape(int B, int H, int Lq, int Lk) {
+  int device = 0;
+  cudaGetDevice(&device);
+  static int sms[64] = {};  // per device, read once
+  if (device < 64 && !sms[device])
+    cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device);
+  const int sm_count = device < 64 && sms[device] ? sms[device] : 132;
+  const int tiles = mma::round16(Lq > Lk ? Lq : Lk) / kRows;
+  const int heads = B * H;
+  int cluster = 1;
+  if (heads < kFusedFill * sm_count) {
+    cluster = (kFusedFill * sm_count + heads - 1) / heads;
+    cluster = cluster < 8 ? cluster : 8;
+    cluster = cluster < tiles ? cluster : tiles;
+  }
+  const int per_warp = (tiles + cluster * kFusedMaxWarps - 1) / (cluster * kFusedMaxWarps);
+  int warps = (tiles + cluster * per_warp - 1) / (cluster * per_warp);
+  cluster = (tiles + warps * per_warp - 1) / (warps * per_warp);
+  // the registers of kFusedMaxWarps warps are the block's anyway: as many
+  // workers as a block's tiles take, so that more warps hide latency
+  const int block_tiles = (tiles + cluster - 1) / cluster;
+  warps = block_tiles < kFusedMaxWarps ? block_tiles : kFusedMaxWarps;
+  return {cluster, warps};
+}
+
+template <int NT, int HN, int MIN_BLOCKS>
+int launch_fused_nt(const CUtensorMap (&maps)[4], void* dq, void* dk, void* dv, int B, int H,
+                    int Lq, int Lk, int hd, float scale, FusedShape shape, cudaStream_t stream) {
+  auto kernel = attention_bwd_fused_kernel<NT, HN, MIN_BLOCKS>;
+  const size_t smem = fused_smem_bytes(Lq, Lk, hd);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int LP = mma::round16(Lq > Lk ? Lq : Lk);
-  attention_bwd_mma_kernel<NT><<<B * H, LP / 16 * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(g), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), H, Lq, Lk, hd, scale);
+  // all of the SM's 228 KB to shared memory, so that MIN_BLOCKS blocks fit
+  // (the attribute stays set: once an instance and device)
+  int device = 0;
+  cudaGetDevice(&device);
+  static bool carveout[64] = {};
+  if (device >= 64 || !carveout[device]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    if (device < 64) carveout[device] = true;
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned)(shape.cluster * B * H));
+  config.blockDim = dim3((unsigned)(shape.warps * 32));
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)shape.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, kernel, maps[0], maps[1], maps[2], maps[3],
+                           static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                           H, Lq, Lk, hd, scale, shape.cluster);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+int launch_fused(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
+                 void* dv, int B, int H, int Lq, int Lk, int hd, float scale,
+                 cudaStream_t stream) {
+  if (Lq > kFusedMaxLen || Lk > kFusedMaxLen || hd > 128) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4];  // q, k, v, g
+  int err = tma::encode_heads(&maps[0], q, B, Lq, H, hd, kRows);
+  if (!err) err = tma::encode_heads(&maps[1], k, B, Lk, H, hd, kRows);
+  if (!err) err = tma::encode_heads(&maps[2], v, B, Lk, H, hd, kRows);
+  if (!err) err = tma::encode_heads(&maps[3], g, B, Lq, H, hd, kRows);
+  if (err) return err;
+  const FusedShape shape = fused_shape(B, H, Lq, Lk);
+  const bool wide = mma::round16(hd) > 64;
+  if (fused_nt(Lq, Lk) == 17)
+    return wide ? launch_fused_nt<17, 16, 1>(maps, dq, dk, dv, B, H, Lq, Lk, hd, scale, shape, stream)
+                : launch_fused_nt<17, 8, 3>(maps, dq, dk, dv, B, H, Lq, Lk, hd, scale, shape, stream);
+  return wide ? launch_fused_nt<20, 16, 1>(maps, dq, dk, dv, B, H, Lq, Lk, hd, scale, shape, stream)
+              : launch_fused_nt<20, 8, 2>(maps, dq, dk, dv, B, H, Lq, Lk, hd, scale, shape, stream);
 }
 
 // ---- bf16, past 160 tokens: the long route --------------------------------
@@ -666,13 +1005,6 @@ size_t long_smem(int Lk, int hd) {
   const size_t KR = 16 * (size_t)long_shape(Lk, hd).warps;
   return 2 * KR * mma::padded(hd) * sizeof(bf16) + kLongStages * long_stage_bytes(hd) +
          KR * kLongSq * sizeof(bf16) + 2 * (size_t)kLongQ * (mma::round16(hd) + 4) * sizeof(float);
-}
-
-// logits of a fragment in base 2: s * scale * log2(e), rounded on its own
-// (never fused into the next subtraction, so that both kernels form the
-// same value from the same product), masked to -inf where `live` is false
-__device__ __forceinline__ float logit2(float s, float scale2, bool live) {
-  return live ? __fmul_rn(s, scale2) : -CUDART_INF_F;
 }
 
 // stats: per (batch row, head) [3][long_rows(Lq)] fp32 = the row max of
@@ -1021,51 +1353,34 @@ int launch_long(const void* q, const void* k, const void* v, const void* g, void
   return (int)cudaGetLastError();
 }
 
-bool fused_takes(int Lq, int Lk) { return Lq <= kMmaMaxLen && Lk <= kMmaMaxLen; }
-
-int launch_bf16(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
-                void* dv, float* stats, int B, int H, int Lq, int Lk, int hd, float scale,
-                cudaStream_t stream) {
-  if (hd > 128) return (int)cudaErrorInvalidValue;
-  if (!fused_takes(Lq, Lk)) {
-    if (Lk > kLongMaxKeys) return (int)cudaErrorInvalidValue;
-    return launch_long(q, k, v, g, dq, dk, dv, stats, B, H, Lq, Lk, hd, scale, stream);
-  }
-  if (mma::round16(Lk) <= 8 * kRowTiles)
-    return launch_mma<kRowTiles>(q, k, v, g, dq, dk, dv, B, H, Lq, Lk, hd, scale, stream);
-  return launch_mma<kMmaMaxLen / 8>(q, k, v, g, dq, dk, dv, B, H, Lq, Lk, hd, scale, stream);
-}
-
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block needs, in bytes (dtype 0 = fp32: the larger of
-// its two kernels; 1 = bf16: the fused kernel, or past its lengths the
-// larger of the long route's two).
-size_t attention_bwd_smem_bytes(int dtype, int Lq, int Lk, int hd) {
-  if (dtype == 1) {
-    if (fused_takes(Lq, Lk)) return mma_smem_bytes(Lq, Lk, hd);
+// The routes of a launch, chosen by the caller (ops/flash_attention.py's
+// bwd_route): 0 fp32 (CUDA cores), 1 bf16 fused (Lq, Lk <= kFusedMaxLen),
+// 2 bf16 long route (up to kLongMaxKeys keys).
+int attention_bwd_fused_max_len() { return kFusedMaxLen; }
+int attention_bwd_long_max_keys() { return kLongMaxKeys; }
+
+// Shared memory one block of `route` needs, in bytes (the long route: the
+// larger of its two kernels').
+size_t attention_bwd_smem_bytes(int route, int Lq, int Lk, int hd) {
+  if (route == 1) return fused_smem_bytes(Lq, Lk, hd);
+  if (route == 2) {
     const size_t a = stat_smem(hd), b = long_smem(Lk, hd);
     return a > b ? a : b;
   }
   return smem_bytes(Lq > Lk ? Lq : Lk, hd);
 }
 
-// fp32 scratch one launch needs for its rows' statistics, in floats: the
-// fp32 kernels 3 B H Lq, the bf16 long route 3 B H Lq rounded up to whole
-// chunks of 32 rows, the fused kernel none.
-size_t attention_bwd_stats_floats(int dtype, int B, int H, int Lq, int Lk) {
-  if (dtype == 0) return 3 * (size_t)B * H * Lq;
-  return fused_takes(Lq, Lk) ? 0 : 3 * (size_t)B * H * long_rows(Lq);
+// fp32 scratch one launch of `route` needs for its rows' statistics, in
+// floats: the fp32 kernels 3 B H Lq, the long route 3 B H Lq rounded up to
+// whole chunks of 32 rows, the fused kernel none (they stay on chip).
+size_t attention_bwd_stats_floats(int route, int B, int H, int Lq, int Lk) {
+  if (route == 0) return 3 * (size_t)B * H * Lq;
+  return route == 2 ? 3 * (size_t)B * H * long_rows(Lq) : 0;
 }
-
-// Whether a bf16 launch takes the long route, and the most keys it takes
-// there.
-int attention_bwd_long_route(int dtype, int Lq, int Lk) {
-  return dtype == 1 && !fused_takes(Lq, Lk);
-}
-int attention_bwd_long_max_keys() { return kLongMaxKeys; }
 
 // Largest dynamic shared memory a block may opt into on `device`.
 int attention_bwd_smem_limit(int device) {
@@ -1075,17 +1390,20 @@ int attention_bwd_smem_limit(int device) {
 }
 
 // q, g, dq [B, Lq, H*hd]; k, v, dk, dv [B, Lk, H*hd]: contiguous, 16-byte
-// aligned, hd % 8 == 0, hd <= 128. stats: fp32 scratch of
-// attention_bwd_stats_floats floats where that is not 0, else unused (may
-// be null).
+// aligned, hd % 8 == 0, hd <= 128; fp32 for route 0, bf16 for 1 and 2.
+// stats: fp32 scratch of attention_bwd_stats_floats floats where that is
+// not 0, else unused (may be null).
 // Launches on `stream`; returns the first cudaError.
 int attention_bwd(const void* q, const void* k, const void* v, const void* g, void* dq,
-                  void* dk, void* dv, void* stats, int dtype, int B, int H, int Lq, int Lk,
+                  void* dk, void* dv, void* stats, int route, int B, int H, int Lq, int Lk,
                   int hd, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_bf16(q, k, v, g, dq, dk, dv, static_cast<float*>(stats), B, H, Lq, Lk, hd,
+  if (route == 1) return launch_fused(q, k, v, g, dq, dk, dv, B, H, Lq, Lk, hd, scale, s);
+  if (route == 2) {
+    if (hd > 128 || Lk > kLongMaxKeys) return (int)cudaErrorInvalidValue;
+    return launch_long(q, k, v, g, dq, dk, dv, static_cast<float*>(stats), B, H, Lq, Lk, hd,
                        scale, s);
+  }
   return launch_fp32(q, k, v, g, dq, dk, dv, static_cast<float*>(stats), B, H, Lq, Lk, hd,
                      scale, s);
 }

@@ -74,16 +74,23 @@ __device__ __forceinline__ void stage_async(bf16* dst, const bf16* src, int L, i
 }
 
 // four 8x8 b16 matrices; lanes 8i .. 8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+// (a shared-memory byte address, or a pointer into shared memory)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  ldsm_x4(r, smem_addr(p));
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  ldsm_x4_t(r, smem_addr(p));
 }
 
 // c += a . b, 16x16 by 16x8, fp32 accumulation

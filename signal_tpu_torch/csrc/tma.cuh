@@ -57,6 +57,12 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
+// arrive once (release: this thread's shared-memory writes before it are
+// visible to a thread whose wait sees the phase complete)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(saddr(bar)) : "memory");
+}
+
 // wait until the phase of parity `parity` has completed
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   const uint32_t addr = saddr(bar);

@@ -38,10 +38,18 @@ is computed once, and a block (or a thread-block cluster of up to 8, when
 the heads are too few to fill the card) brings each head's K and V on
 chip once with TMA; past 256 keys the two-pass kernel, counted in
 ``attention_fwd_cuda.launches_long`` as well. A shape whose route does
-not fit in shared memory raises. The bf16 backward routes by length in
-the same way (fused up to 160 tokens, its long route past them). The
-sources say more. Mesh and tensor-parallel routing (`:263-281` of the JAX
-module) live in ``ops/attention.sharded_attention``.
+not fit in shared memory raises.
+
+The bf16 backward routes here too (:func:`bwd_route`): while Lq and Lk are
+at most :data:`BWD_FUSED_MAX_LEN` (160, every shipped shape at 129
+tokens) and the head fits its shared memory, the fused kernel: a block (or
+a cluster, for few heads) brings one head's Q, K, V and G on chip by TMA
+and runs two phases on them, query tiles (dQ) then key tiles (dK, dV),
+three blocks an SM at 129 tokens; past 160 tokens the long route (a
+row-statistics kernel, then a key-parallel cluster kernel, up to 1024
+keys), counted in ``attention_bwd_cuda.launches_long``. The sources say
+more. Mesh and tensor-parallel routing (`:263-281` of the JAX module) live
+in ``ops/attention.sharded_attention``.
 """
 
 from __future__ import annotations
@@ -53,7 +61,8 @@ import torch
 
 # the kernels' limits: 16-byte vector loads of a head's columns (hd % 8 ==
 # 0), and hd <= 128, at which the bf16 backward's fused kernel still holds
-# Lq = Lk = 160 in shared memory (its long route takes up to 1024 keys)
+# Lq = Lk = 160 in shared memory (166,896 B; its long route takes up to
+# 1024 keys)
 MAX_HEAD_DIM = 128
 
 # the bf16 forward's one-pass kernel keeps a whole key row of logits in a
@@ -64,6 +73,17 @@ FWD_ONE_PASS_MAX_KEYS = 256
 FWD_ROUTES = {"fp32": 0, "one_pass": 1, "long": 2}
 
 
+# the bf16 backward's fused kernel holds a query tile's whole key row in
+# registers and a head's Q, K, V and G in shared memory: up to this many
+# tokens either way; longer ones take the long route
+# (``csrc/attention_bwd.cu``'s ``attention_bwd_fused_max_len``)
+BWD_FUSED_MAX_LEN = 160
+# the backward's routes, as ``attention_bwd`` in the source numbers them
+BWD_ROUTES = {"fp32": 0, "fused": 1, "long": 2}
+# the most dynamic shared memory a block of an H100 may opt into (227 KB)
+SMEM_OPTIN_BYTES = 232448
+
+
 def fwd_route(dtype: torch.dtype, Lk: int) -> str:
     """The forward kernel a launch takes: ``fp32`` (CUDA cores), or in
     bf16 ``one_pass`` up to :data:`FWD_ONE_PASS_MAX_KEYS` keys and
@@ -71,6 +91,31 @@ def fwd_route(dtype: torch.dtype, Lk: int) -> str:
     if dtype == torch.float32:
         return "fp32"
     return "one_pass" if Lk <= FWD_ONE_PASS_MAX_KEYS else "long"
+
+
+def bwd_fused_smem_bytes(Lq: int, Lk: int, hd: int) -> int:
+    """Shared memory of one block of the fused backward kernel
+    (``fused_smem_bytes`` in the source): Q, G, K and V at 144 rows while
+    a warp's register row of 136 keys takes Lk and the rows take Lq, else
+    at 160, in 128-byte slabs of 64 bf16 columns (one up to hd 64, two past
+    it); each row's three statistics; 4 + 10 barriers (the operands'
+    copies, the query tiles' statistics); 1024 bytes to align the slabs."""
+    rows = 144 if Lk <= 136 and (Lq + 15) // 16 * 16 <= 144 else 160
+    slabs = 1 if (hd + 15) // 16 * 16 <= 64 else 2
+    return 1024 + 4 * slabs * rows * 128 + 12 * rows + 8 * 14
+
+
+def bwd_route(dtype: torch.dtype, Lq: int, Lk: int, hd: int) -> str:
+    """The backward kernels a launch takes: ``fp32`` (CUDA cores), or in
+    bf16 ``fused`` while Lq, Lk <= :data:`BWD_FUSED_MAX_LEN` and the
+    head's tiles fit a block's shared memory, else ``long`` (the
+    statistics and key-parallel kernels). Every head dim the kernels take
+    (<= 128) fits up to 160 tokens (166,896 B at hd 128), so today the
+    lengths alone decide."""
+    if dtype == torch.float32:
+        return "fp32"
+    fits = bwd_fused_smem_bytes(Lq, Lk, hd) <= SMEM_OPTIN_BYTES
+    return "fused" if max(Lq, Lk) <= BWD_FUSED_MAX_LEN and fits else "long"
 
 
 def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -186,10 +231,12 @@ def _load(name: str) -> ctypes.CDLL:
                                       ctypes.c_float, p]
         lib.attention_bwd_stats_floats.argtypes = [i, i, i, i, i]
         lib.attention_bwd_stats_floats.restype = ctypes.c_size_t
-        lib.attention_bwd_long_route.argtypes = [i, i, i]
-        lib.attention_bwd_long_route.restype = i
         lib.attention_bwd_long_max_keys.argtypes = []
         lib.attention_bwd_long_max_keys.restype = i
+        lib.attention_bwd_fused_max_len.argtypes = []
+        lib.attention_bwd_fused_max_len.restype = i
+        if lib.attention_bwd_fused_max_len() != BWD_FUSED_MAX_LEN:
+            raise RuntimeError("csrc/attention_bwd.cu and BWD_FUSED_MAX_LEN disagree")
     getattr(lib, f"{name}_smem_bytes").argtypes = [i, i, i, i]
     getattr(lib, name).restype = i
     getattr(lib, f"{name}_smem_bytes").restype = ctypes.c_size_t
@@ -271,23 +318,24 @@ def _attention_fwd_fake(q, k, v, num_heads):
 def attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
                        num_heads: int):
     """Launch ``csrc/attention_bwd.cu`` on the current stream. In bf16 it
-    routes by length: Lq, Lk <= 160 take its fused tensor-core kernel,
-    longer sequences its long route (a row-statistics kernel, then a
-    key-parallel kernel on a cluster of blocks per head; up to 1024 keys at
-    any head dim and any Lq; beyond that it raises). In fp32 its row and
-    column kernels. q, g [B, Lq, D], k/v [B, Lk, D], fp32 or bf16, on the
-    card → (dq, dk, dv) in the same shapes and dtype. Counts each call in
-    ``attention_bwd_cuda.launches``, and those of the long route also in
-    ``attention_bwd_cuda.launches_long``."""
+    routes by length (:func:`bwd_route`): Lq, Lk <= 160 take its fused
+    kernel (one head's operands on chip by TMA, dQ by query tiles then dK
+    and dV by key tiles), longer sequences its long route (a row-statistics
+    kernel, then a key-parallel kernel on a cluster of blocks per head; up
+    to 1024 keys at any head dim and any Lq; beyond that it raises). In
+    fp32 its row and column kernels. q, g [B, Lq, D], k/v [B, Lk, D], fp32
+    or bf16, on the card → (dq, dk, dv) in the same shapes and dtype.
+    Counts each call in ``attention_bwd_cuda.launches``, and those of the
+    long route also in ``attention_bwd_cuda.launches_long``."""
     hd = _check("attention_bwd_cuda", num_heads, q, k, v, g)
     lib = _load("attention_bwd")
     B, Lq, D = q.shape
     Lk = k.shape[1]
-    code = _DTYPE_CODE[q.dtype]
-    what = f"Lq={Lq}, Lk={Lk}, hd={hd} ({q.dtype})"
-    long_route = bool(lib.attention_bwd_long_route(code, Lq, Lk))
+    route = bwd_route(q.dtype, Lq, Lk, hd)
+    code = BWD_ROUTES[route]
+    what = f"Lq={Lq}, Lk={Lk}, hd={hd} ({q.dtype}, {route} route)"
     max_keys = lib.attention_bwd_long_max_keys()
-    if long_route and Lk > max_keys:
+    if route == "long" and Lk > max_keys:
         raise ValueError(f"{what}: the bf16 backward's long route takes at most {max_keys} keys")
     _guard_smem("attention_bwd", lib, lib.attention_bwd_smem_bytes(code, Lq, Lk, hd),
                 q.device, what)
@@ -304,9 +352,9 @@ def attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: tor
                            code, B, num_heads, Lq, Lk, hd, 1.0 / math.sqrt(hd),
                            torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"attention_bwd launch failed: cudaError {rc}")
+        raise RuntimeError(f"attention_bwd launch failed ({route} route): cudaError {rc}")
     attention_bwd_cuda.launches += 1
-    attention_bwd_cuda.launches_long += long_route
+    attention_bwd_cuda.launches_long += route == "long"
     return dq, dk, dv
 
 

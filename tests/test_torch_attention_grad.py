@@ -68,6 +68,56 @@ def test_bwd_plain_version_matches_jax_kernel(B, Lq, Lk, D, H, dtype):
             np.testing.assert_allclose(to_np(a), to_np(b), atol=2e-3, rtol=4e-3, err_msg=name)
 
 
+@pytest.mark.parametrize("Lq,Lk,hd,route", [
+    (129, 129, 64, "fused"),    # every shipped train shape at 129 tokens
+    (160, 160, 64, "fused"),    # the fused kernel's longest
+    (160, 160, 128, "fused"),   # ... at the widest head, 166,896 B of shared memory
+    (161, 161, 64, "long"),
+    (160, 161, 64, "long"),     # cross attention: either length past 160
+    (161, 160, 128, "long"),
+    (1, 160, 8, "fused"),       # a single query or key
+    (160, 1, 24, "fused"),
+    (1, 161, 64, "long"),
+    (211, 129, 64, "long"),     # STRIDE_SIZE 12
+    (1, 1, 8, "fused"),
+])
+def test_bwd_routes_by_length(Lq, Lk, hd, route):
+    """The bf16 backward's route is chosen in host code: the fused kernel
+    while both lengths are at most 160 and the head fits a block's shared
+    memory, else the long route; fp32 has its own kernels."""
+    from signal_tpu_torch.ops import flash_attention as fa
+
+    assert fa.bwd_route(torch.bfloat16, Lq, Lk, hd) == route
+    assert fa.bwd_route(torch.float32, Lq, Lk, hd) == "fp32"
+
+
+def test_bwd_route_follows_the_source(monkeypatch):
+    """The limits ``bwd_route`` uses are the CUDA source's: the fused
+    kernel's length, its shared memory (Q, G, K and V at 144 rows while a
+    register row of 136 keys takes Lk, else 160; 128-byte slabs of 64
+    columns) and the route numbers; a head too large for a block's shared
+    memory goes to the long route."""
+    from pathlib import Path
+
+    from signal_tpu_torch.ops import flash_attention as fa
+
+    src = (Path(fa.__file__).parent.parent / "csrc" / "attention_bwd.cu").read_text()
+    assert f"constexpr int kFusedMaxLen = {fa.BWD_FUSED_MAX_LEN};" in src
+    assert f"if (route == {fa.BWD_ROUTES['fused']}) return launch_fused" in src
+    assert f"if (route == {fa.BWD_ROUTES['long']}) {{" in src
+    assert "return Lk <= 136 && mma::round16(Lq) <= 144 ? 17 : 20;" in src
+    assert fa.bwd_fused_smem_bytes(129, 129, 64) == 76592        # three blocks an SM
+    assert fa.bwd_fused_smem_bytes(160, 160, 128) == 166896
+    assert fa.bwd_fused_smem_bytes(145, 17, 8) == 1024 + 4 * 160 * 128 + 12 * 160 + 112
+    assert fa.bwd_fused_smem_bytes(144, 137, 8) == 1024 + 4 * 160 * 128 + 12 * 160 + 112
+    assert fa.bwd_fused_smem_bytes(144, 136, 8) == 1024 + 4 * 144 * 128 + 12 * 144 + 112
+    assert fa.bwd_fused_smem_bytes(9, 9, 72) == 1024 + 4 * 2 * 144 * 128 + 12 * 144 + 112
+    assert fa.bwd_fused_smem_bytes(160, 160, 128) <= fa.SMEM_OPTIN_BYTES
+    monkeypatch.setattr(fa, "SMEM_OPTIN_BYTES", 100_000)
+    assert fa.bwd_route(torch.bfloat16, 160, 160, 128) == "long"
+    assert fa.bwd_route(torch.bfloat16, 129, 129, 64) == "fused"
+
+
 def test_fused_attention_has_a_gradient_on_the_cpu():
     """The operator's autograd formula carries the plain backward: gradients of
     ``flash_attention`` are the plain backward's, with the cotangent cast

@@ -17,8 +17,9 @@ pytestmark = pytest.mark.cuda
 # contraction), 64 and 128; cross attention both ways. The forward's
 # one-pass kernel holds 64, 144, 224 or 256 keys of a row in registers
 # (143-145, 208-225, 255-256) and gives way to the two-pass kernel past 256
-# (257); the backward's fused kernel takes up to 160 (159-161)
-_EDGE_LENGTHS = [(n, n) for n in (1, 15, 16, 17, 129, 143, 144, 145, 159, 160, 161, 192, 193,
+# (257); the backward's fused kernel takes up to 160 (159-161), holding 136
+# or 160 keys of a row (136-137)
+_EDGE_LENGTHS = [(n, n) for n in (1, 15, 16, 17, 129, 136, 137, 143, 144, 145, 159, 160, 161, 192, 193,
                                   *range(208, 226), 255, 256, 257)] + [
     (1, 145), (145, 1), (17, 129), (129, 16), (15, 17), (17, 256), (256, 17), (3, 257),
     (257, 3)]
@@ -231,6 +232,56 @@ def test_attention_bwd_kernel_rejects_what_it_cannot_take(cuda_device):
     assert attention_bwd_cuda.launches == before
 
 
+@pytest.mark.parametrize("B", [192, 3])
+def test_attention_bwd_fused_repeats_to_the_bit(cuda_device, B):
+    """The fused kernel sums in one fixed order, with no atomics (a
+    cluster's blocks share out whole tiles and exchange only the rows'
+    statistics): two launches at the flagship step's shape and at a
+    pipeline microbatch's few heads give the same bits."""
+    from signal_tpu_torch.ops.flash_attention import attention_bwd_cuda
+
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    q, k, v, g = (torch.randn(B, 129, 768, device=cuda_device, generator=gen).bfloat16()
+                  for _ in "qkvg")
+    before = (attention_bwd_cuda.launches, attention_bwd_cuda.launches_long)
+    first = attention_bwd_cuda(q, k, v, g, 12)
+    second = attention_bwd_cuda(q, k, v, g, 12)
+    torch.cuda.synchronize()
+    assert (attention_bwd_cuda.launches - before[0],
+            attention_bwd_cuda.launches_long - before[1]) == (2, 0)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+def test_attention_bwd_routes_by_length(cuda_device):
+    """bf16 up to 160 tokens either way takes the fused kernel, past them
+    the long route (counted in ``launches_long`` too), each equal to the
+    plain version; fp32 its own kernels. The fused kernel's shared memory
+    is the one ``bwd_route`` reckons with."""
+    from signal_tpu_torch.ops import flash_attention as fa
+
+    lib = fa._load("attention_bwd")
+    for Lq, Lk, hd in ((129, 129, 64), (160, 160, 128), (1, 160, 8), (144, 145, 24)):
+        assert lib.attention_bwd_smem_bytes(fa.BWD_ROUTES["fused"], Lq, Lk, hd) == \
+            fa.bwd_fused_smem_bytes(Lq, Lk, hd)
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    for Lq, Lk, dtype, long_route in ((160, 160, torch.bfloat16, 0), (161, 161, torch.bfloat16, 1),
+                                      (160, 161, torch.bfloat16, 1), (161, 3, torch.bfloat16, 1),
+                                      (200, 200, torch.float32, 0)):
+        q, g = (torch.randn(2, Lq, 256, device=cuda_device, generator=gen).to(dtype) for _ in "qg")
+        k, v = (torch.randn(2, Lk, 256, device=cuda_device, generator=gen).to(dtype) for _ in "kv")
+        before = (fa.attention_bwd_cuda.launches, fa.attention_bwd_cuda.launches_long)
+        got = fa.attention_bwd_cuda(q, k, v, g, 2)
+        torch.cuda.synchronize()
+        assert (fa.attention_bwd_cuda.launches - before[0],
+                fa.attention_bwd_cuda.launches_long - before[1]) == (1, long_route), (Lq, Lk)
+        want = fa.flash_attention_bwd_reference(q, k, v, g, 2)
+        tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 else dict(atol=8e-3, rtol=1e-2)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            np.testing.assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                                       err_msg=f"{name} {Lq}x{Lk}", **tol)
+
+
 def test_attention_bwd_long_route_repeats_to_the_bit(cuda_device):
     """The long route sums dQ over a head's key blocks in a fixed order
     (rank order through distributed shared memory, no atomics): two
@@ -252,21 +303,24 @@ def test_attention_bwd_long_route_repeats_to_the_bit(cuda_device):
 def test_bf16_kernels_run_on_the_tensor_cores_without_spills(cuda_device):
     """Each library's bf16 kernels hold tensor-core instructions (HMMA in
     ``cuobjdump -sass``) and spill nothing (``nvcc -Xptxas -v``): the
-    forward's one-pass kernel (each of its instances), its two-pass kernel
-    and the backward's."""
+    forward's one-pass kernel (each of its instances), its two-pass kernel,
+    the backward's fused kernel (each of its instances) and its long
+    route's two."""
     from signal_tpu_torch.ops import _build
 
     try:
         _build.cuda_tool("cuobjdump")
     except RuntimeError:
         pytest.skip("needs cuobjdump")
-    bf16_kernels = ("mma_kernel", "onepass_kernel")
+    bf16_kernels = ("mma_kernel", "onepass_kernel", "fused_kernel")
     for name in ("attention_fwd", "attention_bwd"):
         hmma = {fn: n for fn, n in _build.hmma_counts(name).items()
                 if any(k in fn for k in bf16_kernels)}
         assert hmma and all(hmma.values()), (name, hmma)
         if name == "attention_fwd":
             assert sum("onepass_kernel" in fn for fn in hmma) == 4, hmma
+        else:
+            assert sum("fused_kernel" in fn for fn in hmma) == 4, hmma
         report = {fn: r for fn, r in _build.ptxas_report(name).items()
                   if any(k in fn for k in bf16_kernels)}
         assert report.keys() == hmma.keys(), (name, report, hmma)

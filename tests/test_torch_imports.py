@@ -14,7 +14,8 @@ REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "signal_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch_eval.py",
     REPO / "scripts" / "profile_torch_train.py", REPO / "scripts" / "profile_torch_attention.py",
-    REPO / "scripts" / "export_serving_torch.py", REPO / "scripts" / "time_fed_torch.py"]
+    REPO / "scripts" / "export_serving_torch.py", REPO / "scripts" / "time_fed_torch.py",
+    REPO / "scripts" / "variants_torch_attention.py"]
 
 
 def _forbidden(name: str) -> bool:
