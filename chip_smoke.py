@@ -8,18 +8,26 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build: every CUDA kernel of the port from ``signal_tpu_torch/csrc``,
      one nvcc per source, all started together; each kernel's registers,
      spill bytes and tensor-core instructions (HMMA in ``cuobjdump -sass``;
-     a bf16 kernel without them fails);
+     a bf16 or 3xTF32 kernel without them fails; the fp32 forward runs on
+     the CUDA cores);
   3. kernels vs plain: each kernel's wrapper (attention forward and
      backward) against its plain PyTorch version on the card, at the main
      paths' shapes, at odd ones and at every tile edge of the bf16 kernels
      (the backward's long route past 160 tokens included, with its own
      edges: a ring chunk of 32 queries, a cluster's block of 256 keys, its
-     longest 1024), with the tolerance stated; two launches of the long
-     route at [192, 211, 768] equal to the bit; kernel, plain and library
-     times (CUDA events) and the achieved TFLOP/s, also at the variants'
-     lengths (141, 193, 211, 223 forward; 193 and 211 backward) and at
-     deit_small's D = 384 with 6 heads ([384, 129, 384] and [192, 129,
-     384] forward, [192, 129, 384] backward);
+     longest 1024) and of the fp32 kernels (the same lengths, the rings'
+     wraps, a thousand keys or queries against one), with the tolerance
+     stated; two launches equal to the bit (the long route at [192, 211,
+     768], the fp32 routes at [192, 129, 768] and 3 rows); the fp32
+     routes' error against fp64 at the main shapes (the backward's also at
+     211 tokens, at hd 128 and over 1000 queries at hd 64 and 128), at
+     most 4x the plain fp32 version's; kernel, plain and library times (CUDA events)
+     and the achieved TFLOP/s, also at the variants' lengths (141, 193,
+     211, 223 forward; 193 and 211 backward), the two-pass bf16 forward
+     past 256 keys ([128, 3, 384], [192, 311, 768]) and at deit_small's D
+     = 384 with 6 heads ([384, 129, 384] and [192, 129, 384] forward,
+     [192, 129, 384] backward); fp32 bounds count products as 3xTF32 at a
+     third of the TF32 rate;
   4. eval slice: ``forward_eval`` of the flagship RGBNT201 model (CLIP
      ViT-B/16, width 768, 12 heads, 256×128, SIE, SIM TOPK 80; random
      weights from a seed) on B=128 random packed uint8 images, kernel path
@@ -212,6 +220,58 @@ LONG_EDGES = [(f"edge-{lq}x{lk}-hd{hd}", 2, lq, lk, 2 * hd, 2) for hd in (64, 12
 # the forward at the variants' lengths: the prompted blocks' 141, and 193,
 # 211 and 223 (the second pass over keys)
 LONG_LENGTHS = (141, 193, 211, 223)
+# the fp32 kernels in both directions: every bf16 edge length, the rings'
+# wraps (the forward's chunks of 32 keys, the backward's of 16 rows: 31-33,
+# 48-49) and a thousand keys or queries against one (past what the earlier
+# fp32 kernels held in shared memory), at head dims 64 and 128
+FP32_EDGES = [(f"edge-{lq}x{lk}-hd{hd}-fp32", 2, lq, lk, 2 * hd, 2) for hd in (64, 128)
+              for lq, lk in EDGE_LENGTHS + [(n, n) for n in (31, 32, 33, 48, 49)]
+              + [(1, 1000), (1000, 1)]]
+# two launches on the same inputs give the same bits: the fp32 routes at the
+# train step's [192, 129, 768] and at a pipeline microbatch of 3 rows
+FP32_REPEATS = ("train-fp32", "main-fp32", "pipe-rows3-l129-fp32")
+
+
+def kernel_bound(peaks, nbytes: int, flops: int, fp32: bool):
+    """The least time of a launch: its bytes at the memory rate, or its
+    products at the bf16 tensor-core rate (fp32: as 3xTF32, at a third of
+    the TF32 rate) → (ms, what bounds it)."""
+    bw, bf16_peak, _, tf32_peak = peaks
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / (tf32_peak / 3 if fp32 else bf16_peak) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def fp64_errors(got, want, want64):
+    """Max abs error against fp64 of the kernel's outputs and of the plain
+    fp32 version's → (kernel's, plain's)."""
+    return ([(a.double() - c).abs().max().item() for a, c in zip(got, want64)],
+            [(b.double() - c).abs().max().item() for b, c in zip(want, want64)])
+
+
+def attention64(q, k, v, H):
+    """softmax(scale q.k^T).v per head in fp64: the yardstick of the fp32
+    kernels' error (the plain versions compute in fp32)."""
+    qh, kh, vh = (t.double().unflatten(-1, (H, -1)).transpose(1, 2) for t in (q, k, v))
+    p = ((qh @ kh.transpose(-1, -2)) * qh.shape[-1] ** -0.5).softmax(-1)
+    return (p @ vh).transpose(1, 2).flatten(2)
+
+
+def attention_bwd64(q, k, v, g, H):
+    """(dq, dk, dv) of :func:`attention64` at output gradient g, in fp64."""
+    qh, kh, vh, gh = (t.double().unflatten(-1, (H, -1)).transpose(1, 2) for t in (q, k, v, g))
+    scale = qh.shape[-1] ** -0.5
+    p = ((qh @ kh.transpose(-1, -2)) * scale).softmax(-1)
+    dp = gh @ vh.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    out = ((ds @ kh) * scale, (ds.transpose(-1, -2) @ qh) * scale, p.transpose(-1, -2) @ gh)
+    return tuple(t.transpose(1, 2).flatten(2) for t in out)
+
+
+# the fp32 backward's error against fp64, each output at most 4x the plain
+# fp32 version's: the train step's shape, STRIDE_SIZE 12's 211 tokens, hd
+# 128, and 1000 queries (the cols kernel's sums over the queries are the
+# longest there) at hd 64 and 128
+FP64_BWD = ("main-fp32", "long211-fp32", "hd128-fp32", "q1000-fp32", "q1000-hd128-fp32")
 
 
 def clipreid_cases(torch, kinds=("eval", "train")):
@@ -354,6 +414,7 @@ def check_attention(torch, report, peaks):
         ("main-bf16", 384, 129, 129, 768, 12, torch.bfloat16),
         ("main-fp32", 384, 129, 129, 768, 12, torch.float32),
         ("train-bf16", 192, 129, 129, 768, 12, torch.bfloat16),
+        ("train-fp32", 192, 129, 129, 768, 12, torch.float32),
         ("cross-bf16", 128, 3, 384, 512, 8, torch.bfloat16),
         ("cross-fp32", 128, 3, 384, 512, 8, torch.float32),
         ("odd-bf16", 16, 9, 9, 384, 6, torch.bfloat16),
@@ -364,14 +425,21 @@ def check_attention(torch, report, peaks):
         ("d384-train-bf16", 192, 129, 129, 384, 6, torch.bfloat16),
     ] + tp_cases(torch) + pipe_cases(torch) + clipreid_cases(torch) + [
         (f"len{L}-bf16", 192, L, L, 768, 12, torch.bfloat16) for L in LONG_LENGTHS] + [
-        (*edge, torch.bfloat16) for edge in EDGES]
+        ("len211-fp32", 192, 211, 211, 768, 12, torch.float32),
+        # the two-pass bf16 route past 256 keys at a 384×128 input's
+        # STRIDE_SIZE 12 length (31 × 10 + 1 tokens), timed beside cross-bf16
+        ("len311-bf16", 192, 311, 311, 768, 12, torch.bfloat16)] + [
+        (*edge, torch.bfloat16) for edge in EDGES] + [(*edge, torch.float32) for edge in FP32_EDGES]
     rows = {}
+    long_first = 0  # two-pass launches of the cases' first calls (not of timings)
     for name, B, Lq, Lk, D, H, dt in cases:
         q = torch.randn(B, Lq, D, device="cuda", generator=gen).to(dt)
         k = torch.randn(B, Lk, D, device="cuda", generator=gen).to(dt)
         v = torch.randn(B, Lk, D, device="cuda", generator=gen).to(dt)
+        before = attention_fwd_cuda.launches_long
         got = attention_fwd_cuda(q, k, v, H)
         torch.cuda.synchronize()
+        long_first += attention_fwd_cuda.launches_long - before
         want = flash_attention_reference(q, k, v, H)
         err = (got.float() - want.float()).abs()
         if dt == torch.float32:
@@ -383,29 +451,31 @@ def check_attention(torch, report, peaks):
         row = {"shape": [B, Lq, Lk, D, H], "dtype": str(dt).split(".")[1],
                "max_abs_err": err.max().item(), "tolerance": tol_text,
                "route": fwd_route(dt, Lk)}
-        if name == "len211-bf16":
-            # the one-pass kernel sums in one fixed order: a second launch
-            # gives the same bits
+        if name in ("len211-bf16", *FP32_REPEATS):
+            # the one-pass and fp32 kernels sum in one fixed order: a second
+            # launch gives the same bits
             again = attention_fwd_cuda(q, k, v, H)
             torch.cuda.synchronize()
             row["repeat_bit_identical"] = torch.equal(got, again)
             del again
-        if name.startswith(("main", "train", "len", "d384", "clipreid", "tp", "pipe")):
+        if name == "main-fp32":
+            # against fp64 on the same inputs, beside the plain fp32
+            # version: at most 4x its error
+            (row["max_abs_err_fp64"],), (row["plain_max_abs_err_fp64"],) = fp64_errors(
+                (got,), (want,), (attention64(q, k, v, H),))
+        if name.startswith(("main", "train", "len", "d384", "clipreid", "tp", "pipe", "cross")):
             hd = D // H
             elt = q.element_size()
             nbytes = (2 * B * Lq * D + 2 * B * Lk * D) * elt      # q, k, v read; o written
             flops = 4 * B * H * Lq * Lk * hd                      # QKᵀ and P·V
-            bw, bf16_peak, fp32_peak = peaks
-            t_bytes = nbytes / bw * 1e3
-            t_ops = flops / (bf16_peak if dt == torch.bfloat16 else fp32_peak) * 1e3
+            bound, by = kernel_bound(peaks, nbytes, flops, dt == torch.float32)
             qh, kh, vh = (t.view(t.shape[0], t.shape[1], H, hd).transpose(1, 2)
                           for t in (q, k, v))
             row.update(
                 ms=cuda_ms(torch, lambda: attention_fwd_cuda(q, k, v, H)),
                 plain_ms=cuda_ms(torch, lambda: flash_attention_reference(q, k, v, H), iters=5),
                 library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh)),
-                bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                bytes=nbytes, flops=flops, bound_ms=bound, bound_by=by)
             row["tflops"] = flops / row["ms"] / 1e9
         rows[name] = row
         if not name.startswith("edge"):
@@ -415,11 +485,15 @@ def check_attention(torch, report, peaks):
                              f"max abs err {row['max_abs_err']} ({tol_text})")
         if row.get("repeat_bit_identical") is False:
             raise SystemExit(f"attention_fwd {name}: two launches differ")
+        if row.get("max_abs_err_fp64", 0) > 4 * row.get("plain_max_abs_err_fp64", 0):
+            raise SystemExit(f"attention_fwd {name}: {row['max_abs_err_fp64']} from fp64, over "
+                             f"4x the plain fp32 version's {row['plain_max_abs_err_fp64']}")
         del q, k, v, got, want, err
     log_edges("attention_fwd", rows)
     long_cases = sorted(n for n, r in rows.items() if r["route"] == "long")
     report["attention_fwd_long_route"] = {
-        "cases": long_cases, "launches": attention_fwd_cuda.launches_long - long_before}
+        "cases": long_cases, "launches": long_first,
+        "launches_with_timings": attention_fwd_cuda.launches_long - long_before}
     log(f"[kernel] attention_fwd two-pass route (past {FWD_ONE_PASS_MAX_KEYS} keys): "
         f"{json.dumps(report['attention_fwd_long_route'])}")
     if report["attention_fwd_long_route"]["launches"] != len(long_cases):
@@ -452,10 +526,16 @@ def check_attention_bwd(torch, report, peaks):
         # (211 tokens) and a 384×128 input (193)
         ("long211-bf16", 192, 211, 211, 768, 12, torch.bfloat16),
         ("long193-bf16", 192, 193, 193, 768, 12, torch.bfloat16),
+        ("long211-fp32", 192, 211, 211, 768, 12, torch.float32),
         # deit_small's train shape: D = 384, 6 heads of 64
         ("d384-train-bf16", 192, 129, 129, 384, 6, torch.bfloat16),
+        # the fp32 backward against fp64 at hd 128 and over 1000 queries
+        ("hd128-fp32", 96, 129, 129, 768, 6, torch.float32),
+        ("q1000-fp32", 2, 1000, 1000, 128, 2, torch.float32),
+        ("q1000-hd128-fp32", 2, 1000, 1000, 256, 2, torch.float32),
     ] + tp_cases(torch) + pipe_cases(torch) + clipreid_cases(torch, ("train",)) + [
-        (*edge, torch.bfloat16) for edge in EDGES + LONG_EDGES]
+        (*edge, torch.bfloat16) for edge in EDGES + LONG_EDGES] + [
+        (*edge, torch.float32) for edge in FP32_EDGES]
     rows = {}
     for name, B, Lq, Lk, D, H, dt in cases:
         q, g = (torch.randn(B, Lq, D, device="cuda", generator=gen).to(dt) for _ in "qg")
@@ -477,15 +557,16 @@ def check_attention_bwd(torch, report, peaks):
                "max_abs_err_dq_dk_dv": [e.max().item() for e in errs],
                "max_abs_want_dq_dk_dv": [b.float().abs().max().item() for b in want],
                "tolerance": tol_text, "route": route}
+        if name in FP64_BWD:
+            row["max_abs_err_fp64"], row["plain_max_abs_err_fp64"] = fp64_errors(
+                got, want, attention_bwd64(q, k, v, g, H))
         if name.startswith(("main", "long", "d384", "clipreid", "tp", "pipe")):
             hd = D // H
             elt = q.element_size()
             # q, g read and dq written (Lq); k, v read and dk, dv written (Lk)
             nbytes = (3 * B * Lq * D + 4 * B * Lk * D) * elt
             flops = 5 * 2 * B * H * Lq * Lk * hd                  # QKᵀ, dV, dP, dQ, dK
-            bw, bf16_peak, fp32_peak = peaks
-            t_bytes = nbytes / bw * 1e3
-            t_ops = flops / (bf16_peak if dt == torch.bfloat16 else fp32_peak) * 1e3
+            bound, by = kernel_bound(peaks, nbytes, flops, dt == torch.float32)
             # the library yardstick: SDPA's backward alone on the same shapes
             qh, kh, vh = (t.view(B, t.shape[1], H, hd).transpose(1, 2).detach().requires_grad_(True)
                           for t in (q, k, v))
@@ -497,15 +578,15 @@ def check_attention_bwd(torch, report, peaks):
                                  iters=5),
                 library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
                     o, (qh, kh, vh), gh, retain_graph=True)),
-                bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                bytes=nbytes, flops=flops, bound_ms=bound, bound_by=by)
             row["tflops"] = flops / row["ms"] / 1e9
             del qh, kh, vh, o, gh
-        if name in ("main-bf16", "pipe-rows3-l129-bf16", "long211-bf16"):
-            # both bf16 routes sum in fixed orders with no atomics (the fused
+        if name in ("main-bf16", "pipe-rows3-l129-bf16", "long211-bf16", *FP32_REPEATS):
+            # every route sums in fixed orders with no atomics (the fused
             # kernel's cluster blocks share whole tiles; the long route adds
-            # dQ over a head's key blocks in rank order): a second launch
-            # gives the same bits
+            # dQ over a head's key blocks in rank order; the fp32 kernels
+            # give each output to one warp): a second launch gives the same
+            # bits
             again = attention_bwd_cuda(q, k, v, g, H)
             torch.cuda.synchronize()
             row["repeat_bit_identical"] = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -518,6 +599,10 @@ def check_attention_bwd(torch, report, peaks):
                              f"max abs err {row['max_abs_err']} ({tol_text})")
         if row.get("repeat_bit_identical") is False:
             raise SystemExit(f"attention_bwd {name}: two launches differ")
+        if any(a > 4 * b for a, b in zip(row.get("max_abs_err_fp64", []),
+                                         row.get("plain_max_abs_err_fp64", []))):
+            raise SystemExit(f"attention_bwd {name}: {row['max_abs_err_fp64']} from fp64, over "
+                             f"4x the plain fp32 version's {row['plain_max_abs_err_fp64']}")
         del q, k, v, g, got, want, errs
     log_edges("attention_bwd", rows)
     long_cases = sorted(n for n, r in rows.items() if r["route"] == "long")
@@ -530,11 +615,14 @@ def check_attention_bwd(torch, report, peaks):
 
 
 def log_edges(kernel: str, rows) -> None:
-    """One line for the tile-edge cases (each row is in chip_smoke.json)."""
-    edges = {n: r for n, r in rows.items() if n.startswith("edge")}
-    worst = max(edges, key=lambda n: edges[n]["max_abs_err"])
-    log(f"[kernel] {kernel} {len(edges)} tile-edge cases (bf16, {edges[worst]['tolerance']}) "
-        f"pass; largest max abs err {edges[worst]['max_abs_err']} at {worst}")
+    """One line a dtype for the tile-edge cases (each row is in
+    chip_smoke.json)."""
+    for dt in ("bfloat16", "float32"):
+        edges = {n: r for n, r in rows.items() if n.startswith("edge") and r["dtype"] == dt}
+        worst = max(edges, key=lambda n: edges[n]["max_abs_err"])
+        log(f"[kernel] {kernel} {len(edges)} tile-edge cases ({dt}, "
+            f"{edges[worst]['tolerance']}) pass; largest max abs err "
+            f"{edges[worst]['max_abs_err']} at {worst}")
 
 
 def check_build(torch, report):
@@ -554,8 +642,8 @@ def check_build(torch, report):
             log(f"[build] {lib}: {short}: {row['registers']} registers, spill stores "
                 f"{row['spill_stores']} B, spill loads {row['spill_loads']} B, "
                 f"HMMA {row['hmma']}")
-            if any(k in short for k in ("mma_kernel", "onepass_kernel", "fused_kernel")) and \
-                    row["hmma"] == 0:
+            if any(k in short for k in ("mma_kernel", "onepass_kernel", "fused_kernel",
+                                        "tf32_kernel")) and row["hmma"] == 0:
                 raise SystemExit(f"{short} has no tensor-core instruction")
     report["build"] = kernels
     log(f"[build] {sorted(libs)} in {report['build_s']:.1f} s")
@@ -3491,9 +3579,16 @@ def main() -> int:
     bwd = check_attention_bwd(torch, report, peaks)
     # from here on every driven path runs at most 256 keys: the forward's
     # two-pass route must not be reached (counted here and in each rank)
-    from signal_tpu_torch.ops.flash_attention import FWD_ONE_PASS_MAX_KEYS, attention_fwd_cuda
+    from signal_tpu_torch.ops.flash_attention import (
+        FWD_ONE_PASS_MAX_KEYS,
+        attention_bwd_cuda,
+        attention_fwd_cuda,
+    )
 
     attention_fwd_cuda.launches_long = 0
+    # the fp32 kernels' launches on the driven paths of this process (phases
+    # 4-16 and 17's DIST_TRAIN run; the fp32 flagship of phases 4, 6, 9, 10)
+    attention_fwd_cuda.launches_fp32 = attention_bwd_cuda.launches_fp32 = 0
     check_slice(torch, report)
     eval_launches = run_main_path(torch, report)
     check_train_step(torch, report)
@@ -3517,6 +3612,10 @@ def main() -> int:
     # phase 19: pipeline parallelism in a gloo world
     pipe_launches = check_pipeline(torch, report)
 
+    fp32_driven = (attention_fwd_cuda.launches_fp32, attention_bwd_cuda.launches_fp32)
+    if not all(fp32_driven):
+        raise SystemExit(f"the driven paths launched the fp32 kernels {fp32_driven} times "
+                         "(forward, backward): each at least once")
     fwd_long_driven = attention_fwd_cuda.launches_long + sum(
         n.get("attention_fwd_long", 0) for group in (world_launches, axis_launches, pipe_launches)
         for n in group.values())
@@ -3535,6 +3634,39 @@ def main() -> int:
                 "tflops": bf16["tflops"], "shape": bf16["shape"], "ms_fp32": fp32["ms"],
                 "bound_ms_fp32": fp32["bound_ms"], "library_ms_fp32": fp32["library_ms"]}
 
+    def fp32_entry(name, kernels, source, replaces, kernel_rows, launches):
+        """The fp32 route's kernels: the main shape's row, fp64 errors,
+        repeats, ptxas, and every other timed fp32 shape."""
+        main = kernel_rows["main-fp32"]
+        out = {"name": name, "kernels": kernels, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches,
+               **{key: main[key] for key in ("max_abs_err", "max_abs_err_fp64",
+                                             "plain_max_abs_err_fp64", "ms", "plain_ms",
+                                             "bound_ms", "bound_by", "library_ms", "tflops",
+                                             "shape")},
+               "repeat_bit_identical": all(kernel_rows[n]["repeat_bit_identical"]
+                                           for n in FP32_REPEATS if n in kernel_rows),
+               "max_abs_err_edges": max(r["max_abs_err"] for n, r in kernel_rows.items()
+                                        if n.startswith("edge") and r["dtype"] == "float32"),
+               "ptxas": {short: report["build"][short] for short in report["build"]
+                         if any(k in short for k in kernels)}}
+        for n, r in kernel_rows.items():
+            tag = n.removesuffix("-fp32").replace("-", "_")
+            if r["dtype"] == "float32" and "ms" in r and n != "main-fp32":
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                            "max_abs_err", "tflops", "shape"):
+                    out[f"{key}_{tag}"] = r[key]
+            if "max_abs_err_fp64" in r and n != "main-fp32":
+                for key in ("max_abs_err_fp64", "plain_max_abs_err_fp64", "shape"):
+                    out[f"{key}_{tag}"] = r[key]
+        return out
+
+    fp32_fwd = fp32_entry("attention_fwd_fp32_kernel", ["fwd_fp32_kernel"],
+                          "signal_tpu_torch/csrc/attention_fwd.cu",
+                          "signal_tpu/ops/flash_attention.py:50", rows, fp32_driven[0])
+    fp32_bwd = fp32_entry("attention_bwd_tf32_kernels", ["rows_tf32_kernel", "cols_tf32_kernel"],
+                          "signal_tpu_torch/csrc/attention_bwd.cu",
+                          "signal_tpu/ops/flash_attention.py:123", bwd, fp32_driven[1])
     fwd = entry("attention_fwd", "signal_tpu_torch/csrc/attention_fwd.cu",
                 "signal_tpu/ops/flash_attention.py:50", rows, train_launches["attention_fwd"])
     # the bf16 forward's two routes: the one-pass kernel (every driven path)
@@ -3546,7 +3678,13 @@ def main() -> int:
                            "launches_phase3": report["attention_fwd_long_route"]["launches"],
                            "cases_phase3": report["attention_fwd_long_route"]["cases"],
                            "max_abs_err": max(rows[n]["max_abs_err"]
-                                              for n in report["attention_fwd_long_route"]["cases"])},
+                                              for n in report["attention_fwd_long_route"]["cases"]),
+                           # past 256 keys: SIM-style cross attention and a
+                           # 384×128 input's STRIDE_SIZE 12 length
+                           **{f"{key}_{n.removesuffix('-bf16')}": rows[n][key]
+                              for n in ("cross-bf16", "len311-bf16")
+                              for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms", "tflops", "shape")}},
                ptxas={short: report["build"][short] for short in report["build"]
                       if "onepass_kernel" in short})
     fwd.update(launches_eval=eval_launches, launches_recipe=recipe_launches["attention_fwd"],
@@ -3633,7 +3771,7 @@ def main() -> int:
         "ptxas": {short: report["build"][short] for short in report["build"]
                   if "stats_mma" in short or "long_mma" in short},
     }
-    kernels = [fwd, bwd_entry, long_entry]
+    kernels = [fwd, bwd_entry, long_entry, fp32_fwd, fp32_bwd]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     out = REPO / "chiprun_out"

@@ -116,24 +116,49 @@
 // The route takes Lk <= 1024 (clusters of at most 8 blocks, the portable
 // size) at any hd <= 128 and any Lq; the wrapper raises beyond.
 //
-// fp32: two CUDA-core kernels that need no atomics and sum in a fixed
-// order. fp32 stays off the tensor cores: there they would run TF32.
-//
-//   rows_kernel  one block per (batch row, head, tile of query rows); it
-//                stages the head's K and V in shared memory, and each warp
-//                takes one query row: logits, P, dP, the row's
-//                delta = rowsum(dP o P), dS, and dQ. It writes dQ and the
-//                row's softmax max, sum and delta (fp32) to a scratch.
-//   cols_kernel  one block per (batch row, head, tile of key rows); it
-//                stages the head's Q and G, and each warp takes one key row:
-//                it recomputes the column of P from the row statistics (the
-//                same dot products in the same order, so the same P), then
-//                dP, dS, dV and dK.
-//
-// Lanes take rows j, j + 32, ... of the staged operand and stop at its
-// length; the staged rows are padded by 16 bytes so that the lanes of a
-// warp, each on its own row, read distinct banks. The dots run in fp32 on
-// the CUDA cores, so on-chip work bounds these kernels, not memory.
+// fp32 (MODEL.COMPUTE_DTYPE float32), at any length: two kernels on the
+// tensor cores in 3xTF32 (mma_tf32.cuh: each operand split into a tf32 high
+// part and a remainder, three mma.sync.m16n8k8 a product, about 21 bits of
+// each product kept), as PyTorch's fp32 SDPA forms its products; TF32
+// itself is not turned on. At [192, 129, 768] a launch moves 532.6 MB
+// (0.159 ms at 3.35 TB/s) and its 5 products are 24.5 GFLOP (0.149 ms at a
+// third of the 495 TFLOP/s TF32 rate): device memory bounds it, and the
+// three tensor-core passes a product, the splitting on the CUDA cores and
+// the 9 products of two kernels hold it above that. Two kernels, so that
+// each stages only two of a head's operands: four fp32 operands of a head
+// in one block (the bf16 fused kernel's design) would take 132 KB at 129
+// tokens, one block an SM. Each block takes up to kFp32Warps 16-row tiles
+// of one head, a warp a tile, its two operands' tiles by TMA; the other two
+// operands stream through a ring of kStages chunks of 16 rows by TMA (fp32
+// maps, the 128-byte swizzle, zero fill past hd and past L), so every
+// length fits; tf32::grid_for sizes the blocks (no idle warp where it can,
+// more blocks a head where the heads are few). No atomics, fixed orders:
+// two launches give the same bits.
+//   attention_bwd_rows_tf32_kernel  dQ and the rows' statistics. Per query
+//       tile the key chunks stream twice. Pass 1 forms S = Q.K^T and dP =
+//       G.V^T and keeps the row max, sum e and u = sum dP.e, rescaled as
+//       the max grows, so that delta = u / sum = rowsum(dP o P) comes from
+//       dP and P (as the TPU kernel; FA-2's rowsum(dO o O) is not used).
+//       Each row's max, 1/sum (0 past Lq) and delta go to a scratch, [B
+//       H][round16(Lq)] of {m, 1/l, delta, 0}. Pass 2 forms S and dP again,
+//       P = exp(logit - max) / sum and dS = P o (dP - delta), and dQ += dS.K
+//       (each k-step added on the CUDA cores, mma3_add): 5 products. A
+//       register row of S and dP (3 products: both kept over up to 144 keys)
+//       took 254 registers, two blocks of three warps an SM, and ran 1.38x
+//       slower at [192, 129, 768] (scripts/variants_torch_attention.py
+//       --fp32; PERF.md).
+//   attention_bwd_cols_tf32_kernel  dK and dV. Per 16-key tile the queries
+//       stream with their statistics (a bulk copy beside Q and G): S^T =
+//       K.Q^T and dP^T = V.G^T (the same products, operands swapped), P and
+//       dS from the rows' statistics, and dV += P^T.G, dK += dS^T.Q with P^T
+//       and dS^T straight from the accumulators as A fragments: 4 products.
+//       dK's query steps are added on the CUDA cores (fresh sums); dV's
+//       chain in the tensor core's truncating accumulator up to 160
+//       queries (kChainedMaxLq: 2.1x the plain fp32 version's error against
+//       fp64 at 129, 3.1x at 211 and 5.2x at 1000 when chained) and are
+//       fresh past that, at two blocks an SM. Past hd 64 a block takes
+//       half of the head dim (S^T and dP^T formed twice), so that fresh
+//       sums fit its registers.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -142,278 +167,359 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 #include "tma.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
+// ---- fp32: 3xTF32 on the tensor cores, operands streamed by TMA -----------
 
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
+constexpr int kFp32Warps = 4;  // 16-row tiles a block of either kernel, at most
+
+// rows of a (batch row, head) in the fp32 statistics scratch
+__host__ __device__ __forceinline__ int fp32_rows(int Lq) { return mma::round16(Lq); }
+
+// Shared memory of a block of either fp32 kernel at HN n-tiles of 8 of the
+// head dim and `warps` tiles (dynamic, 1024-aligned by hand), each tile 16
+// rows in HN / 4 swizzled slabs of 32 floats: two operands' tiles a warp
+// (rows: Q, G; cols: K, V), the ring [kStages] of two operands' chunks
+// (rows: K, V; cols: Q, G), the ring's row statistics [kStages][16] (the
+// cols kernel's), then the barriers: the warps' tiles', one a stage.
+size_t fp32_smem_bytes(int HN, int warps) {
+  const size_t tile = (size_t)(HN / 4) * tf32::kRows * tf32::kSlab * sizeof(float);
+  return 1024 + tile * 2 * (warps + tf32::kStages) + tf32::kStages * tf32::kRows * 16 +
+         sizeof(uint64_t) * (1 + tf32::kStages);
 }
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__host__ __device__ __forceinline__ int round_up4(int n) { return (n + 3) & ~3; }
-
-// row x (shared, hd floats) dotted with a staged row, ascending over the
-// columns; both kernels use it for the logits and for dP, so the two
-// recompute the same values
-__device__ __forceinline__ float dot_row(const float* x, const float* row, int hd) {
-  float acc = 0.f;
-  for (int c = 0; c < hd; c += 4) {
-    const float4 rr = *reinterpret_cast<const float4*>(row + c);
-    const float4 xx = *reinterpret_cast<const float4*>(x + c);
-    acc = fmaf(xx.x, rr.x, acc);
-    acc = fmaf(xx.y, rr.y, acc);
-    acc = fmaf(xx.z, rr.z, acc);
-    acc = fmaf(xx.w, rr.w, acc);
+template <int HN>
+struct Fp32Smem {
+  static constexpr int kSlabF = tf32::kRows * tf32::kSlab;  // floats of a slab of a tile
+  static constexpr int kTile = (HN / 4) * kSlabF;           // floats of a tile
+  static constexpr uint32_t kBox = kSlabF * sizeof(float);  // bytes of a TMA box
+  float* own;    // [2][warps] tiles
+  float* ring;   // [kStages][2] tiles
+  float4* stat;  // [kStages][16]
+  uint64_t* bars;
+  __device__ __forceinline__ explicit Fp32Smem(unsigned char* raw, int warps) {
+    own = reinterpret_cast<float*>(raw + ((1024 - (tma::saddr(raw) & 1023)) & 1023));
+    ring = own + 2 * warps * kTile;
+    stat = reinterpret_cast<float4*>(ring + 2 * tf32::kStages * kTile);
+    bars = reinterpret_cast<uint64_t*>(stat + tf32::kStages * tf32::kRows);
   }
-  return acc;
-}
+};
 
-// Stage n rows of the head's column block (hd wide, row stride D in src)
-// into dst with row stride hd + 4, 16 bytes per thread per step.
-__device__ __forceinline__ void stage(float* dst, const float* src, int n, int hd, int D) {
-  const int vecs = hd / 4;
-  for (int i = threadIdx.x; i < n * vecs; i += kThreads) {
-    const int r = i / vecs;
-    const int c = (i - r * vecs) * 4;
-    *reinterpret_cast<float4*>(dst + (size_t)r * (hd + 4) + c) =
-        *reinterpret_cast<const float4*>(src + (size_t)r * D + c);
+template <int HN, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kFp32Warps * 32, MIN_BLOCKS)
+attention_bwd_rows_tf32_kernel(const __grid_constant__ CUtensorMap qmap,
+                               const __grid_constant__ CUtensorMap kmap,
+                               const __grid_constant__ CUtensorMap vmap,
+                               const __grid_constant__ CUtensorMap gmap, float* __restrict__ dq,
+                               float4* __restrict__ stats, int H, int Lq, int Lk, int hd,
+                               float scale, int groups) {
+  using namespace tf32;
+  using S = Fp32Smem<HN>;
+  extern __shared__ unsigned char smem_raw[];
+  const int warps = blockDim.x >> 5;
+  const S sm(smem_raw, warps);
+  uint64_t* full = sm.bars + 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int head = blockIdx.x / groups;
+  const int grp = blockIdx.x - head * groups;
+  const int b = head / H, h = head - b * H;
+  const int tiles = (Lq + kRows - 1) / kRows;
+  const int tile = grp * warps + warp;
+  const bool active = tile < tiles;
+  const int loaded = (hd + kSlab - 1) / kSlab;
+  const int n = (Lk + kRows - 1) / kRows;  // key chunks of a pass; 2 n in all
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= kStages; ++i) tma::mbar_init(sm.bars + i, 1);
+    tma::fence_barrier_init();
   }
-}
-
-// out[d], out[d + 1] for the lane's column pairs d = 2 lane + 64 t:
-// sum_j w[j] * S[j][d], over n staged rows S (row stride `stride`)
-__device__ __forceinline__ float2 weighted_rows(const float* w, const float* S, int n, int stride,
-                                                int d) {
-  float a0 = 0.f, a1 = 0.f;
-  int j = 0;
-  for (; j + 4 <= n; j += 4) {
-    const float4 p = *reinterpret_cast<const float4*>(w + j);
-    const float2 s0 = load2(S + (size_t)j * stride + d);
-    const float2 s1 = load2(S + (size_t)(j + 1) * stride + d);
-    const float2 s2 = load2(S + (size_t)(j + 2) * stride + d);
-    const float2 s3 = load2(S + (size_t)(j + 3) * stride + d);
-    a0 = fmaf(p.x, s0.x, a0); a1 = fmaf(p.x, s0.y, a1);
-    a0 = fmaf(p.y, s1.x, a0); a1 = fmaf(p.y, s1.y, a1);
-    a0 = fmaf(p.z, s2.x, a0); a1 = fmaf(p.z, s2.y, a1);
-    a0 = fmaf(p.w, s3.x, a0); a1 = fmaf(p.w, s3.y, a1);
-  }
-  for (; j < n; ++j) {
-    const float2 s = load2(S + (size_t)j * stride + d);
-    a0 = fmaf(w[j], s.x, a0);
-    a1 = fmaf(w[j], s.y, a1);
-  }
-  return make_float2(a0, a1);
-}
-
-// Shared memory of either kernel (dynamic), in this order, all fp32, with
-// n the staged length (Lk for rows_kernel, Lq for cols_kernel):
-//   A, B  [n][hd + 4]                 (K, V) or (Q, G)
-//   x, y  [kWarps][hd]                the warp's current rows
-//   s, t  [kWarps][round_up4(n)]      the warp's P and dP / dS
-size_t smem_bytes(int n, int hd) {
-  return (2 * (size_t)n * (hd + 4) + 2 * (size_t)kWarps * hd +
-          2 * (size_t)kWarps * round_up4(n)) * sizeof(float);
-}
-
-// stats: [3][B * H * Lq] fp32 = (row max of the logits, sum of exp, delta)
-__global__ void __launch_bounds__(kThreads)
-rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, const float* __restrict__ g, float* __restrict__ dq,
-            float* __restrict__ stats, int B, int H, int Lq, int Lk, int hd,
-            int rows_per_block, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int stride = hd + 4;
-  const int p_stride = round_up4(Lk);
-  float* Ks = reinterpret_cast<float*>(smem);
-  float* Vs = Ks + (size_t)Lk * stride;
-  float* qrow = reinterpret_cast<float*>(Vs + (size_t)Lk * stride);
-  float* grow = qrow + kWarps * hd;
-  float* prow = grow + kWarps * hd;
-  float* srow = prow + (size_t)kWarps * p_stride;
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int D = H * hd;
-  const int row0 = blockIdx.y * rows_per_block;
-  const int row1 = min(Lq, row0 + rows_per_block);
-  stage(Ks, k + (size_t)b * Lk * D + (size_t)h * hd, Lk, hd, D);
-  stage(Vs, v + (size_t)b * Lk * D + (size_t)h * hd, Lk, hd, D);
+  zero_unloaded<HN>(sm.own, 2 * warps + 2 * kStages, loaded);
   __syncthreads();
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  qrow += warp * hd;
-  grow += warp * hd;
-  prow += (size_t)warp * p_stride;
-  srow += (size_t)warp * p_stride;
-  const size_t n_rows = (size_t)B * H * Lq;
-
-  for (int row = row0 + warp; row < row1; row += kWarps) {
-    const size_t off = ((size_t)b * Lq + row) * D + (size_t)h * hd;
-    for (int d = lane; d < hd; d += 32) {
-      qrow[d] = q[off + d];
-      grow[d] = g[off + d];
+  // chunk i of the sequence: K and V of key chunk i % n (pass i / n); one
+  // thread
+  auto issue = [&](int i) {
+    const int st = i % kStages, c = i % n;
+    float* dst = sm.ring + 2 * st * S::kTile;
+    tma::mbar_expect_tx(full + st, 2 * loaded * S::kBox);
+    for (int s = 0; s < loaded; ++s) {
+      tma::load_4d(dst + s * S::kSlabF, &kmap, full + st, s * kSlab, h, c * kRows, b);
+      tma::load_4d(dst + S::kTile + s * S::kSlabF, &vmap, full + st, s * kSlab, h, c * kRows, b);
     }
-    __syncwarp();
-
-    // logits and dP = g . v_j; lane j takes keys j, j + 32, ...
-    float mx = -CUDART_INF_F;
-    for (int j = lane; j < Lk; j += 32) {
-      const float logit = dot_row(qrow, Ks + (size_t)j * stride, hd) * scale;
-      prow[j] = logit;
-      srow[j] = dot_row(grow, Vs + (size_t)j * stride, hd);
-      mx = fmaxf(mx, logit);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < Lk; j += 32) {
-      const float e = expf(prow[j] - mx);
-      prow[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    float delta = 0.f;
-    for (int j = lane; j < Lk; j += 32) {
-      const float p = prow[j] / sum;
-      prow[j] = p;
-      delta = fmaf(srow[j], p, delta);
-    }
-    delta = warp_sum(delta);
-    // dS in place of dP
-    for (int j = lane; j < Lk; j += 32) srow[j] = prow[j] * (srow[j] - delta);
-    __syncwarp();
-
-    float* dst = dq + off;
-    for (int d = 2 * lane; d < hd; d += 64) {
-      const float2 acc = weighted_rows(srow, Ks, Lk, stride, d);
-      store2(dst + d, acc.x * scale, acc.y * scale);
-    }
-    if (lane == 0) {
-      const size_t r = ((size_t)b * H + h) * Lq + row;
-      stats[r] = mx;
-      stats[n_rows + r] = sum;
-      stats[2 * n_rows + r] = delta;
-    }
-    __syncwarp();  // the warp's rows are rewritten for its next query row
+  };
+  if (threadIdx.x == 0) {
+    const int mine = min(warps, tiles - grp * warps);
+    tma::mbar_expect_tx(sm.bars, 2 * mine * loaded * S::kBox);
+    for (int w = 0; w < mine; ++w)
+      for (int s = 0; s < loaded; ++s) {
+        const int row = (grp * warps + w) * kRows;
+        tma::load_4d(sm.own + w * S::kTile + s * S::kSlabF, &qmap, sm.bars, s * kSlab, h, row, b);
+        tma::load_4d(sm.own + (warps + w) * S::kTile + s * S::kSlabF, &gmap, sm.bars, s * kSlab,
+                     h, row, b);
+      }
+    for (int i = 0; i < kStages && i < 2 * n; ++i) issue(i);
   }
+
+  const uint32_t sQ = tma::saddr(sm.own + warp * S::kTile);
+  const uint32_t sG = tma::saddr(sm.own + (warps + warp) * S::kTile);
+  const int r0 = tile * kRows;
+  // pass 1: the max, sum e and u = sum dP.e, rescaled as the max grows (l
+  // and u the lane's parts, summed over the quad at the end); pass 2: dQ
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};
+  float inv[2], delta[2], acc[HN][4] = {};
+  if (active) tma::mbar_wait(sm.bars, 0);
+  for (int i = 0; i < 2 * n; ++i) {
+    const int st = i % kStages, c = i % n;
+    tma::mbar_wait(full + st, (i / kStages) & 1);
+    if (i == n) {  // the row statistics, for pass 2 and the cols kernel
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float sum = mma::quad_sum(l[r]);  // every lane shuffles, dead rows too
+        // rows >= Lq: P = 0 (a zero Q row's uniform P would leak into dK, dV)
+        inv[r] = r0 + gr + 8 * r < Lq ? 1.f / sum : 0.f;
+        delta[r] = mma::quad_sum(u[r]) * inv[r];
+      }
+      if (active && tq == 0) {
+        float4* out = stats + (size_t)head * fp32_rows(Lq) + r0 + gr;
+        out[0] = make_float4(m[0], inv[0], delta[0], 0.f);
+        out[8] = make_float4(m[1], inv[1], delta[1], 0.f);
+      }
+    }
+    if (active) {
+      // S = Q.K^T (logits: scaled, masked past Lk) and dP = G.V^T
+      const float* Kc = sm.ring + 2 * st * S::kTile;
+      float s[2][2][4] = {}, d[2][2][4] = {}, x[2][4], dp[2][4];
+      dot_nt<HN>(s, sQ, tma::saddr(Kc), S::kBox, lane);
+      dot_nt<HN>(d, sG, tma::saddr(Kc + S::kTile), S::kBox, lane);
+      logits(x, s, scale, c * kRows, Lk, lane);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[j][e] = d[0][j][e] + d[1][j][e];
+      if (i < n) {
+        float nm[2] = {m[0], m[1]};
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) nm[e >> 1] = fmaxf(nm[e >> 1], x[j][e]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          nm[r] = mma::quad_max(nm[r]);
+          const float f = expf(m[r] - nm[r]);  // 0 before the first chunk
+          l[r] *= f;
+          u[r] *= f;
+          m[r] = nm[r];
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = expf(x[j][e] - m[e >> 1]);
+            l[e >> 1] += p;
+            u[e >> 1] = fmaf(dp[j][e], p, u[e >> 1]);
+          }
+      } else {
+        // P = exp(logit - max) / sum and dS = P o (dP - delta) from the
+        // row statistics; dQ += dS.K
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[j][e] = expf(x[j][e] - m[e >> 1]) * inv[e >> 1] * (dp[j][e] - delta[e >> 1]);
+        dot_cn<HN>(acc, dp[0], Kc, S::kSlabF, 0, lane);
+        dot_cn<HN>(acc, dp[1], Kc, S::kSlabF, 8, lane);
+      }
+    }
+    __syncthreads();  // every warp is done with the stage
+    if (threadIdx.x == 0 && i + kStages < 2 * n) {
+      tma::fence_proxy_async();
+      issue(i + kStages);
+    }
+  }
+  if (active)
+    store_tile<HN>(dq + ((size_t)b * Lq + r0) * H * hd + (size_t)h * hd, H * hd, 0, Lq - r0, hd,
+                   acc, scale, lane);
 }
 
-__global__ void __launch_bounds__(kThreads)
-cols_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, const float* __restrict__ g, float* __restrict__ dk,
-            float* __restrict__ dv, const float* __restrict__ stats, int B, int H, int Lq,
-            int Lk, int hd, int cols_per_block, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int stride = hd + 4;
-  const int p_stride = round_up4(Lq);
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* Gs = Qs + (size_t)Lq * stride;
-  float* krow = reinterpret_cast<float*>(Gs + (size_t)Lq * stride);
-  float* vrow = krow + kWarps * hd;
-  float* pcol = vrow + kWarps * hd;
-  float* scol = pcol + (size_t)kWarps * p_stride;
+// dK and dV of a block's key tiles, HO of the head dim's HN n-tiles of 8
+// (a block a half of the head dim past hd 64: HO = 8 < HN = 16); dK's and,
+// with FRESH_V, dV's query steps added on the CUDA cores
+template <int HN, int HO, bool FRESH_V, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kFp32Warps * 32, MIN_BLOCKS)
+attention_bwd_cols_tf32_kernel(const __grid_constant__ CUtensorMap qmap,
+                               const __grid_constant__ CUtensorMap kmap,
+                               const __grid_constant__ CUtensorMap vmap,
+                               const __grid_constant__ CUtensorMap gmap,
+                               const float4* __restrict__ stats, float* __restrict__ dk,
+                               float* __restrict__ dv, int H, int Lq, int Lk, int hd, float scale,
+                               int groups) {
+  using namespace tf32;
+  using S = Fp32Smem<HN>;
+  extern __shared__ unsigned char smem_raw[];
+  const int warps = blockDim.x >> 5;
+  const S sm(smem_raw, warps);
+  uint64_t* full = sm.bars + 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tq = lane & 3;
+  const int half = blockIdx.x % (HN / HO);  // the columns 8 HO half ..
+  const int head = blockIdx.x / (HN / HO) / groups;
+  const int grp = blockIdx.x / (HN / HO) - head * groups;
+  const int b = head / H, h = head - b * H;
+  const int tiles = (Lk + kRows - 1) / kRows;
+  const int tile = grp * warps + warp;
+  const bool active = tile < tiles;
+  const int loaded = (hd + kSlab - 1) / kSlab;
+  const int n = (Lq + kRows - 1) / kRows;  // query chunks
+  const float4* head_stats = stats + (size_t)head * fp32_rows(Lq);
 
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int D = H * hd;
-  const int col0 = blockIdx.y * cols_per_block;
-  const int col1 = min(Lk, col0 + cols_per_block);
-  stage(Qs, q + (size_t)b * Lq * D + (size_t)h * hd, Lq, hd, D);
-  stage(Gs, g + (size_t)b * Lq * D + (size_t)h * hd, Lq, hd, D);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= kStages; ++i) tma::mbar_init(sm.bars + i, 1);
+    tma::fence_barrier_init();
+  }
+  zero_unloaded<HN>(sm.own, 2 * warps + 2 * kStages, loaded);
   __syncthreads();
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  krow += warp * hd;
-  vrow += warp * hd;
-  pcol += (size_t)warp * p_stride;
-  scol += (size_t)warp * p_stride;
-  const size_t n_rows = (size_t)B * H * Lq;
-  const float* row_max = stats + ((size_t)b * H + h) * Lq;
-  const float* row_sum = row_max + n_rows;
-  const float* row_delta = row_max + 2 * n_rows;
-
-  for (int col = col0 + warp; col < col1; col += kWarps) {
-    const size_t off = ((size_t)b * Lk + col) * D + (size_t)h * hd;
-    for (int d = lane; d < hd; d += 32) {
-      krow[d] = k[off + d];
-      vrow[d] = v[off + d];
+  auto issue = [&](int c) {  // query chunk c of Q, G and their statistics
+    const int st = c % kStages;
+    float* dst = sm.ring + 2 * st * S::kTile;
+    tma::mbar_expect_tx(full + st, 2 * loaded * S::kBox + kRows * sizeof(float4));
+    for (int s = 0; s < loaded; ++s) {
+      tma::load_4d(dst + s * S::kSlabF, &qmap, full + st, s * kSlab, h, c * kRows, b);
+      tma::load_4d(dst + S::kTile + s * S::kSlabF, &gmap, full + st, s * kSlab, h, c * kRows, b);
     }
-    __syncwarp();
-
-    // column `col` of P and dS; lane i takes query rows i, i + 32, ...
-    for (int i = lane; i < Lq; i += 32) {
-      const float logit = dot_row(krow, Qs + (size_t)i * stride, hd) * scale;
-      const float p = expf(logit - row_max[i]) / row_sum[i];
-      const float dp = dot_row(vrow, Gs + (size_t)i * stride, hd);
-      pcol[i] = p;
-      scol[i] = p * (dp - row_delta[i]);
-    }
-    __syncwarp();
-
-    for (int d = 2 * lane; d < hd; d += 64) {
-      const float2 acc_v = weighted_rows(pcol, Gs, Lq, stride, d);
-      const float2 acc_k = weighted_rows(scol, Qs, Lq, stride, d);
-      store2(dv + off + d, acc_v.x, acc_v.y);
-      store2(dk + off + d, acc_k.x * scale, acc_k.y * scale);
-    }
-    __syncwarp();
+    tma::load_bulk(sm.stat + st * kRows, head_stats + c * kRows, kRows * sizeof(float4), full + st);
+  };
+  if (threadIdx.x == 0) {
+    const int mine = min(warps, tiles - grp * warps);
+    tma::mbar_expect_tx(sm.bars, 2 * mine * loaded * S::kBox);
+    for (int w = 0; w < mine; ++w)
+      for (int s = 0; s < loaded; ++s) {
+        const int row = (grp * warps + w) * kRows;
+        tma::load_4d(sm.own + w * S::kTile + s * S::kSlabF, &kmap, sm.bars, s * kSlab, h, row, b);
+        tma::load_4d(sm.own + (warps + w) * S::kTile + s * S::kSlabF, &vmap, sm.bars, s * kSlab,
+                     h, row, b);
+      }
+    for (int c = 0; c < kStages && c < n; ++c) issue(c);
   }
+
+  const uint32_t sK = tma::saddr(sm.own + warp * S::kTile);
+  const uint32_t sV = tma::saddr(sm.own + (warps + warp) * S::kTile);
+  float av[HO][4] = {}, ak[HO][4] = {};
+  if (active) tma::mbar_wait(sm.bars, 0);
+  for (int c = 0; c < n; ++c) {
+    const int st = c % kStages;
+    tma::mbar_wait(full + st, (c / kStages) & 1);
+    if (active) {
+      const float* Qc = sm.ring + 2 * st * S::kTile;
+      const float* Gc = Qc + S::kTile;
+      // P^T, then dS^T, from the rows' statistics (S^T dead before dP^T
+      // is formed: registers); column 2tq + (e & 1) of n-tile j is query 8j
+      // + 2tq + (e & 1) of the chunk
+      const float4* qs = sm.stat + st * kRows + 2 * tq;
+      float p[2][4], ds[2][4];
+      {
+        float s[2][2][4] = {};
+        dot_nt<HN, true>(s, sK, tma::saddr(Qc), S::kBox, lane);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float4 w = qs[8 * j + (e & 1)];
+            p[j][e] = expf(__fmul_rn(s[0][j][e] + s[1][j][e], scale) - w.x) * w.y;
+          }
+      }
+      {
+        float d[2][2][4] = {};
+        dot_nt<HN, true>(d, sV, tma::saddr(Gc), S::kBox, lane);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            ds[j][e] = p[j][e] * (d[0][j][e] + d[1][j][e] - qs[8 * j + (e & 1)].z);
+      }
+      // dK's query steps added on the CUDA cores (chained in the tensor
+      // core, its error against fp64 reached 4.25x the plain fp32
+      // version's); dV's too with FRESH_V (chained, 2.2x at 129 queries;
+      // fresh, 209 registers and two blocks an SM, 1.18x slower)
+      const int c0 = half * (HO / 4) * S::kSlabF;  // the block's first column
+      dot_cn<HO, FRESH_V>(av, p[0], Gc + c0, S::kSlabF, 0, lane);
+      dot_cn<HO, FRESH_V>(av, p[1], Gc + c0, S::kSlabF, 8, lane);
+      dot_cn<HO, true>(ak, ds[0], Qc + c0, S::kSlabF, 0, lane);
+      dot_cn<HO, true>(ak, ds[1], Qc + c0, S::kSlabF, 8, lane);
+    }
+    __syncthreads();  // every warp is done with the stage
+    if (threadIdx.x == 0 && c + kStages < n) {
+      tma::fence_proxy_async();
+      issue(c + kStages);
+    }
+  }
+  if (!active) return;
+  const size_t off = ((size_t)b * Lk + tile * kRows) * H * hd + (size_t)h * hd + 8 * HO * half;
+  store_tile<HO>(dv + off, H * hd, 0, Lk - tile * kRows, hd - 8 * HO * half, av, 1.f, lane);
+  store_tile<HO>(dk + off, H * hd, 0, Lk - tile * kRows, hd - 8 * HO * half, ak, scale, lane);
 }
 
-// query (or key) rows per block of the fp32 kernels: a whole short
-// sequence in one tile, so each block reads its staged operands once
-int rows_per_tile(int n) {
-  const int tiles = (n + 255) / 256;
-  return (n + tiles - 1) / tiles;
+// `split` blocks of each block's tiles (the cols kernel's halves of the
+// head dim)
+template <typename Kernel, typename... Args>
+int launch_tf32_kernel(Kernel kernel, int HN, int split, int heads, int tiles,
+                       cudaStream_t stream, Args... args) {
+  int device = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = tf32::configure_once(reinterpret_cast<const void*>(kernel), device, &limit);
+  if (err != cudaSuccess) return (int)err;
+  const tf32::Grid grid = tf32::grid_for(device, heads, tiles, kFp32Warps);
+  const size_t smem = fp32_smem_bytes(HN, grid.warps);
+  kernel<<<(unsigned)(grid.groups * heads * split), grid.warps * 32, smem, stream>>>(
+      args..., grid.groups);
+  return (int)cudaGetLastError();
+}
+
+// the queries up to which the cols kernel chains dV's sums in the tensor
+// core (hd <= 64): the train step's 129 tokens, within 2.2x of the plain
+// fp32 version's error against fp64; longer sums drift further
+constexpr int kChainedMaxLq = 160;
+
+template <int HN, int ROW_BLOCKS, int HO, bool FRESH_V, int COL_BLOCKS>
+int launch_fp32_hn(const CUtensorMap (&maps)[4], void* dq, void* dk, void* dv, float* stats,
+                   int B, int H, int Lq, int Lk, int hd, float scale, cudaStream_t stream) {
+  const int qt = (Lq + tf32::kRows - 1) / tf32::kRows, kt = (Lk + tf32::kRows - 1) / tf32::kRows;
+  float4* st = reinterpret_cast<float4*>(stats);
+  int err = launch_tf32_kernel(attention_bwd_rows_tf32_kernel<HN, ROW_BLOCKS>, HN, 1, B * H, qt,
+                               stream, maps[0], maps[1], maps[2], maps[3],
+                               static_cast<float*>(dq), st, H, Lq, Lk, hd, scale);
+  if (err) return err;
+  return launch_tf32_kernel(attention_bwd_cols_tf32_kernel<HN, HO, FRESH_V, COL_BLOCKS>, HN,
+                            HN / HO, B * H, kt, stream, maps[0], maps[1], maps[2], maps[3],
+                            static_cast<const float4*>(st), static_cast<float*>(dk),
+                            static_cast<float*>(dv), H, Lq, Lk, hd, scale);
 }
 
 int launch_fp32(const void* q, const void* k, const void* v, const void* g, void* dq,
                 void* dk, void* dv, float* stats, int B, int H, int Lq, int Lk, int hd,
                 float scale, cudaStream_t stream) {
-  const int rows_per_block = rows_per_tile(Lq);
-  const int cols_per_block = rows_per_tile(Lk);
-  const size_t smem_rows = smem_bytes(Lk, hd);
-  const size_t smem_cols = smem_bytes(Lq, hd);
-  cudaError_t err = cudaFuncSetAttribute(rows_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_rows);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(cols_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_cols);
-  if (err != cudaSuccess) return (int)err;
-  const float* qq = static_cast<const float*>(q);
-  const float* kk = static_cast<const float*>(k);
-  const float* vv = static_cast<const float*>(v);
-  const float* gg = static_cast<const float*>(g);
-  const dim3 grid_rows((unsigned)(B * H), (unsigned)((Lq + rows_per_block - 1) / rows_per_block));
-  rows_kernel<<<grid_rows, kThreads, smem_rows, stream>>>(
-      qq, kk, vv, gg, static_cast<float*>(dq), stats, B, H, Lq, Lk, hd, rows_per_block, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid_cols((unsigned)(B * H), (unsigned)((Lk + cols_per_block - 1) / cols_per_block));
-  cols_kernel<<<grid_cols, kThreads, smem_cols, stream>>>(
-      qq, kk, vv, gg, static_cast<float*>(dk), static_cast<float*>(dv), stats, B, H, Lq, Lk,
-      hd, cols_per_block, scale);
-  return (int)cudaGetLastError();
+  if (hd > 128) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4];  // q, k, v, g
+  int err = tma::encode_heads_f32(&maps[0], q, B, Lq, H, hd, tf32::kRows);
+  if (!err) err = tma::encode_heads_f32(&maps[1], k, B, Lk, H, hd, tf32::kRows);
+  if (!err) err = tma::encode_heads_f32(&maps[2], v, B, Lk, H, hd, tf32::kRows);
+  if (!err) err = tma::encode_heads_f32(&maps[3], g, B, Lq, H, hd, tf32::kRows);
+  if (err) return err;
+  // three blocks of up to 4 warps an SM: at most 168 registers a thread;
+  // fresh dV sums take two
+  if (hd <= 64 && Lq <= kChainedMaxLq)
+    return launch_fp32_hn<8, 3, 8, false, 3>(maps, dq, dk, dv, stats, B, H, Lq, Lk, hd, scale,
+                                             stream);
+  if (hd <= 64)
+    return launch_fp32_hn<8, 3, 8, true, 2>(maps, dq, dk, dv, stats, B, H, Lq, Lk, hd, scale,
+                                            stream);
+  return launch_fp32_hn<16, 2, 8, true, 2>(maps, dq, dk, dv, stats, B, H, Lq, Lk, hd, scale,
+                                           stream);
 }
 
 // ---- bf16 up to 160 tokens: the fused kernel, operands by TMA --------------
@@ -1358,7 +1464,7 @@ int launch_long(const void* q, const void* k, const void* v, const void* g, void
 extern "C" {
 
 // The routes of a launch, chosen by the caller (ops/flash_attention.py's
-// bwd_route): 0 fp32 (CUDA cores), 1 bf16 fused (Lq, Lk <= kFusedMaxLen),
+// bwd_route): 0 fp32 (3xTF32, any length), 1 bf16 fused (Lq, Lk <= kFusedMaxLen),
 // 2 bf16 long route (up to kLongMaxKeys keys).
 int attention_bwd_fused_max_len() { return kFusedMaxLen; }
 int attention_bwd_long_max_keys() { return kLongMaxKeys; }
@@ -1371,14 +1477,15 @@ size_t attention_bwd_smem_bytes(int route, int Lq, int Lk, int hd) {
     const size_t a = stat_smem(hd), b = long_smem(Lk, hd);
     return a > b ? a : b;
   }
-  return smem_bytes(Lq > Lk ? Lq : Lk, hd);
+  return fp32_smem_bytes(hd <= 64 ? 8 : 16, kFp32Warps);
 }
 
 // fp32 scratch one launch of `route` needs for its rows' statistics, in
-// floats: the fp32 kernels 3 B H Lq, the long route 3 B H Lq rounded up to
-// whole chunks of 32 rows, the fused kernel none (they stay on chip).
+// floats: the fp32 kernels 4 B H Lq rounded up to whole tiles of 16 rows,
+// the long route 3 B H Lq rounded up to whole chunks of 32 rows, the fused
+// kernel none (they stay on chip).
 size_t attention_bwd_stats_floats(int route, int B, int H, int Lq, int Lk) {
-  if (route == 0) return 3 * (size_t)B * H * Lq;
+  if (route == 0) return 4 * (size_t)B * H * fp32_rows(Lq);
   return route == 2 ? 3 * (size_t)B * H * long_rows(Lq) : 0;
 }
 

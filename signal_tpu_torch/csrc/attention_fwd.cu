@@ -78,12 +78,43 @@
 // over the key chunks, the second recomputes the logits, forms the exact
 // normalised P and accumulates P.V.
 //
-// fp32: `attention_fwd_kernel`, on the CUDA cores (fp32 on the tensor
-// cores would be TF32). One block per (batch row, head, tile of query
-// rows) stages K and V; each warp takes one query row, keeps its Lk
-// logits in shared memory, lanes take one key each (K rows padded by 16
-// bytes against bank conflicts) and walk hd with fmaf: bound by its
-// on-chip work, not by device memory.
+// fp32 (MODEL.COMPUTE_DTYPE float32): `attention_fwd_fp32_kernel`, a
+// register-tiled kernel on the CUDA cores, exact to fp32. It forms every
+// output in the order of the one-row-a-warp kernel it replaces, and gives
+// the same bits: each logit one fmaf chain over hd, times scale;
+// each row's max, e = expf(logit - max) and sum e over the lanes' strided
+// keys, then a butterfly across the warp; P = e / sum (an IEEE divide); O
+// one fmaf chain over the keys in order. 3xTF32 on the tensor cores (each
+// operand split into a tf32 high part and a remainder, as PyTorch's fp32
+// SDPA forms its products) ran 2.7x faster at [384, 129, 768], within 0.9x
+// the plain fp32 version's error against fp64, but moved the gradients of
+// five small-tower fp32 train steps (tests/test_torch_cuda.py, kernel path
+// against plain path) past their limits; so did an exact streamed kernel
+// with an online softmax. This order holds them (PERF.md §6).
+// At [384, 129, 768] a launch moves 608.7 MB (0.182 ms at 3.35 TB/s) and
+// does 19.6 GFLOP of fp32 products (0.293 ms at the 67 TFLOP/s fp32 rate);
+// it takes 1.58 ms (12 TFLOP/s), above SDPA's fp32 1.38: what holds it
+// there is not yet measured (PERF.md §7). The design:
+//   - a block takes up to kFp32Warps 16-row query tiles of one head, a
+//     warp a tile, each out of its own TMA box (fp32 maps, slabs of 32
+//     floats in the 128-byte swizzle, zero fill past hd and past L); a head
+//     whose tiles are too few to fill the card is cut into more blocks of
+//     fewer warps (tf32::grid_for);
+//   - K, then V, stream through a ring of kFp32Stages chunks of kChunk keys
+//     by TMA, chunk t + kFp32Stages issued once every warp is done with
+//     chunk t, so copies run under the math;
+//   - a thread holds a 4 x 4 tile of logits (4 rows, keys 8 apart) and of
+//     O (4 rows, 4 columns a slab): per 4 steps of hd, 8 conflict-free
+//     16-byte shared loads feed 64 fmaf (the swizzle puts the 8 keys or
+//     columns a quarter-warp reads in 8 distinct bank groups; Q and P are
+//     broadcast); the logits go to a row of shared memory per query, where
+//     the softmax reads them by lane, as the one-row-a-warp kernel did;
+//   - the logit rows take 64 B a key a warp: a block shrinks to fewer warps
+//     for long key rows, up to 3264 keys at hd <= 64 and 2944 at hd <= 128
+//     (one warp); past that _guard_smem raises (the one-row-a-warp kernel
+//     took about 410 and 210).
+// Sums are taken in one fixed order with no atomics: two launches on the
+// same inputs give the same bits.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -91,17 +122,18 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 #include "tma.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
+// ---- fp32: a register-tiled kernel on the CUDA cores, operands by TMA ------
 
-// two neighbouring elements (the first 2-element aligned)
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
+constexpr int kFp32Warps = 4;   // 16-row query tiles a block, at most
+constexpr int kChunk = 32;      // keys of a chunk of K or V: one TMA box a slab
+constexpr int kFp32Stages = 2;  // chunks of the ring
+constexpr int kQSlabF = tf32::kRows * tf32::kSlab;  // floats of a slab of a query tile
+constexpr int kCSlabF = kChunk * tf32::kSlab;       // floats of a slab of a chunk
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
@@ -113,134 +145,265 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__host__ __device__ __forceinline__ int round_up4(int n) { return (n + 3) & ~3; }
+// floats of a query's row of logits (then of P): whole chunks, and 4 more
+// so that the rows of a warp's lanes start in two bank groups, not one
+__host__ __device__ __forceinline__ int fp32_prow(int Lk) {
+  return (Lk + kChunk - 1) / kChunk * kChunk + 4;
+}
 
-// Shared memory (dynamic), in this order, all fp32:
-//   Ks   [Lk][hd + 4]             16-byte padded rows
-//   Vs   [Lk][hd]
-//   qrow [kWarps][hd]             the warp's current query row
-//   prow [kWarps][round_up4(Lk)]  the warp's logits, then its P
-__global__ void __launch_bounds__(kThreads)
-attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     int H, int Lq, int Lk, int hd, int rows_per_block, float scale) {
-  constexpr int kVec = 4;  // elements in one 16-byte load
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ks_stride = hd + kVec;
-  const int p_stride = round_up4(Lk);
-  float* Ks = reinterpret_cast<float*>(smem);
-  float* Vs = Ks + (size_t)Lk * ks_stride;
-  float* qrow_all = reinterpret_cast<float*>(Vs + (size_t)Lk * hd);
-  float* prow_all = qrow_all + kWarps * hd;
+// Shared memory of a block of `warps` query tiles at HS slabs of 32
+// floats of the head dim (dynamic, 1024-aligned by hand): Qs [warps] tiles,
+// the ring [kFp32Stages] chunks, the logit rows [warps][16][fp32_prow],
+// then the barriers: the Q tiles', one a stage.
+size_t fp32_fixed_bytes(int HS) {
+  return 1024 + (size_t)kFp32Stages * HS * kCSlabF * sizeof(float) +
+         sizeof(uint64_t) * (1 + kFp32Stages);
+}
+size_t fp32_warp_bytes(int HS, int Lk) {
+  return ((size_t)HS * kQSlabF + (size_t)tf32::kRows * fp32_prow(Lk)) * sizeof(float);
+}
+size_t fp32_smem_bytes(int HS, int warps, int Lk) {
+  return fp32_fixed_bytes(HS) + warps * fp32_warp_bytes(HS, Lk);
+}
 
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int D = H * hd;
-  const int row0 = blockIdx.y * rows_per_block;
-  const int row1 = min(Lq, row0 + rows_per_block);
-
-  // stage this head's K and V, 16 bytes per thread per step
-  const int vecs_per_row = hd / kVec;
-  const float* kbase = k + (size_t)b * Lk * D + (size_t)h * hd;
-  const float* vbase = v + (size_t)b * Lk * D + (size_t)h * hd;
-  for (int i = threadIdx.x; i < Lk * vecs_per_row; i += kThreads) {
-    const int r = i / vecs_per_row;
-    const int c = (i - r * vecs_per_row) * kVec;
-    const uint4 kv = *reinterpret_cast<const uint4*>(kbase + (size_t)r * D + c);
-    const uint4 vv = *reinterpret_cast<const uint4*>(vbase + (size_t)r * D + c);
-    *reinterpret_cast<uint4*>(Ks + (size_t)r * ks_stride + c) = kv;
-    *reinterpret_cast<uint4*>(Vs + (size_t)r * hd + c) = vv;
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* qrow = qrow_all + warp * hd;
-  float* prow = prow_all + (size_t)warp * p_stride;
-
-  for (int row = row0 + warp; row < row1; row += kWarps) {
-    const float* qsrc = q + ((size_t)b * Lq + row) * D + (size_t)h * hd;
-    for (int d = lane; d < hd; d += 32) qrow[d] = qsrc[d];
-    __syncwarp();
-
-    // logits: lane j takes keys j, j + 32, ...; keys past Lk (the tail of
-    // the last 32-key step) are never visited
-    float mx = -CUDART_INF_F;
-    for (int j = lane; j < Lk; j += 32) {
-      const float* krow = Ks + (size_t)j * ks_stride;
-      float acc = 0.f;
-      for (int c = 0; c < hd; c += kVec) {
-        const float4 kk = *reinterpret_cast<const float4*>(krow + c);
-        const float4 qq = *reinterpret_cast<const float4*>(qrow + c);
-        acc = fmaf(qq.x, kk.x, acc);
-        acc = fmaf(qq.y, kk.y, acc);
-        acc = fmaf(qq.z, kk.z, acc);
-        acc = fmaf(qq.w, kk.w, acc);
+// The logits of a warp's 16 query rows and one chunk of keys (key0 ..):
+// lane (rg, x) = (lane / 8, lane % 8) takes rows 4 rg .. 4 rg + 3 and keys
+// x + 8 c, c < 4, each one fmaf chain over hd in order (columns past hd
+// are zero in Q and K), times scale, into the rows of P (keys < Lk)
+template <int HS>
+__device__ __forceinline__ void logits_chunk(float* P, int prow, const float* Q, const float* K,
+                                             int key0, int Lk, float scale, int rg, int x) {
+  float acc[4][4] = {};
+#pragma unroll
+  for (int s = 0; s < HS; ++s)
+#pragma unroll
+    for (int ch = 0; ch < 8; ++ch) {
+      float4 q[4], k[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = 4 * rg + r;
+        q[r] = *reinterpret_cast<const float4*>(Q + s * kQSlabF + row * tf32::kSlab +
+                                                ((ch ^ (row & 7)) << 2));
       }
-      const float logit = acc * scale;
-      prow[j] = logit;
-      mx = fmaxf(mx, logit);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)  // key x + 8c: its row's swizzle is x
+        k[c] = *reinterpret_cast<const float4*>(K + s * kCSlabF + (x + 8 * c) * tf32::kSlab +
+                                                ((ch ^ x) << 2));
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          acc[r][c] = fmaf(q[r].x, k[c].x, acc[r][c]);
+          acc[r][c] = fmaf(q[r].y, k[c].y, acc[r][c]);
+          acc[r][c] = fmaf(q[r].z, k[c].z, acc[r][c]);
+          acc[r][c] = fmaf(q[r].w, k[c].w, acc[r][c]);
+        }
     }
-    mx = warp_max(mx);
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int key = key0 + x + 8 * c;
+      if (key < Lk) P[(4 * rg + r) * prow + key] = __fmul_rn(acc[r][c], scale);
+    }
+}
 
+// The softmax of a warp's 16 rows of logits, in place: per row the max,
+// e = expf(logit - max) and the sum of e, lane j summing keys j, j + 32,
+// ... in order, then a butterfly across the warp, and P = e / sum; the
+// keys Lk .. width of each row to 0
+__device__ __forceinline__ void softmax_rows(float* P, int prow, int Lk, int width, int lane) {
+  for (int r = 0; r < tf32::kRows; ++r) {
+    float* row = P + r * prow;
+    float mx = -CUDART_INF_F;
+    for (int j = lane; j < Lk; j += 32) mx = fmaxf(mx, row[j]);
+    mx = warp_max(mx);
     float sum = 0.f;
     for (int j = lane; j < Lk; j += 32) {
-      const float e = expf(prow[j] - mx);
-      prow[j] = e;
+      const float e = expf(row[j] - mx);
+      row[j] = e;
       sum += e;
     }
     sum = warp_sum(sum);
-    for (int j = lane; j < Lk; j += 32) prow[j] = prow[j] / sum;
-    __syncwarp();
-
-    // o = P.V: lane owns the column pairs (2 lane, 2 lane + 1) + 64 t
-    float* odst = o + ((size_t)b * Lq + row) * D + (size_t)h * hd;
-    for (int d = 2 * lane; d < hd; d += 64) {
-      float a0 = 0.f, a1 = 0.f;
-      int j = 0;
-      for (; j + 4 <= Lk; j += 4) {
-        const float4 p = *reinterpret_cast<const float4*>(prow + j);
-        const float2 v0 = load2(Vs + (size_t)j * hd + d);
-        const float2 v1 = load2(Vs + (size_t)(j + 1) * hd + d);
-        const float2 v2 = load2(Vs + (size_t)(j + 2) * hd + d);
-        const float2 v3 = load2(Vs + (size_t)(j + 3) * hd + d);
-        a0 = fmaf(p.x, v0.x, a0); a1 = fmaf(p.x, v0.y, a1);
-        a0 = fmaf(p.y, v1.x, a0); a1 = fmaf(p.y, v1.y, a1);
-        a0 = fmaf(p.z, v2.x, a0); a1 = fmaf(p.z, v2.y, a1);
-        a0 = fmaf(p.w, v3.x, a0); a1 = fmaf(p.w, v3.y, a1);
-      }
-      for (; j < Lk; ++j) {
-        const float p = prow[j];
-        const float2 vv = load2(Vs + (size_t)j * hd + d);
-        a0 = fmaf(p, vv.x, a0);
-        a1 = fmaf(p, vv.y, a1);
-      }
-      *reinterpret_cast<float2*>(odst + d) = make_float2(a0, a1);
-    }
-    __syncwarp();  // qrow and prow are rewritten for the warp's next row
+    for (int j = lane; j < Lk; j += 32) row[j] = row[j] / sum;
+    for (int j = Lk + lane; j < width; j += 32) row[j] = 0.f;
   }
 }
 
-size_t smem_bytes(int Lk, int hd) {
-  return ((size_t)Lk * (hd + 4) + (size_t)Lk * hd + (size_t)kWarps * hd +
-          (size_t)kWarps * round_up4(Lk)) * sizeof(float);
+// O += P.V over one chunk of keys (key0 ..) for a warp's 16 rows: lane
+// (rg, x) takes rows 4 rg .. 4 rg + 3 and columns 32 s + 4 x .. 32 s + 4 x
+// + 3 of each slab s, one fmaf chain a column over the keys in order (P
+// and V are zero past Lk)
+template <int HS>
+__device__ __forceinline__ void pv_chunk(float4 (&acc)[4][HS], const float* P, int prow,
+                                         const float* V, int key0, int rg, int x) {
+#pragma unroll 2
+  for (int j = 0; j < kChunk; j += 4) {
+    float4 p[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      p[r] = *reinterpret_cast<const float4*>(P + (4 * rg + r) * prow + key0 + j);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int key = j + jj;
+#pragma unroll
+      for (int s = 0; s < HS; ++s) {
+        const float4 v = *reinterpret_cast<const float4*>(V + s * kCSlabF + key * tf32::kSlab +
+                                                          ((x ^ (key & 7)) << 2));
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float pr = jj == 0 ? p[r].x : jj == 1 ? p[r].y : jj == 2 ? p[r].z : p[r].w;
+          acc[r][s].x = fmaf(pr, v.x, acc[r][s].x);
+          acc[r][s].y = fmaf(pr, v.y, acc[r][s].y);
+          acc[r][s].z = fmaf(pr, v.z, acc[r][s].z);
+          acc[r][s].w = fmaf(pr, v.w, acc[r][s].w);
+        }
+      }
+    }
+  }
 }
 
-int launch_fp32(const void* q, const void* k, const void* v, void* o, int B, int H,
-                int Lq, int Lk, int hd, float scale, cudaStream_t stream) {
-  // a whole short sequence in one tile, so each block reads K and V once
-  const int tiles = (Lq + 255) / 256;
-  const int rows_per_block = (Lq + tiles - 1) / tiles;
-  const size_t smem = smem_bytes(Lk, hd);
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int HS, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kFp32Warps * 32, MIN_BLOCKS)
+attention_fwd_fp32_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap, float* __restrict__ o, int H,
+                          int Lq, int Lk, int hd, float scale, int groups) {
+  extern __shared__ unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw + ((1024 - (tma::saddr(smem_raw) & 1023)) & 1023));
+  const int warps = blockDim.x >> 5;
+  const int prow = fp32_prow(Lk);
+  float* ring = Qs + warps * HS * kQSlabF;
+  float* Ps = ring + kFp32Stages * HS * kCSlabF;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(Ps + warps * tf32::kRows * prow);
+  uint64_t* full = qbar + 1;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = lane >> 3, x = lane & 7;
+  const int head = blockIdx.x / groups;
+  const int grp = blockIdx.x - head * groups;
+  const int b = head / H, h = head - b * H;
+  const int tiles = (Lq + tf32::kRows - 1) / tf32::kRows;
+  const int tile = grp * warps + warp;
+  const bool active = tile < tiles;
+  const int loaded = (hd + tf32::kSlab - 1) / tf32::kSlab;  // slabs the copies write
+  const int n = (Lk + kChunk - 1) / kChunk;                 // key chunks, of K then of V
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= kFp32Stages; ++i) tma::mbar_init(qbar + i, 1);
+    tma::fence_barrier_init();
+  }
+  // the slabs past hd, which no copy writes, to zero: the Q tiles' and the
+  // ring's
+  for (int i = threadIdx.x; i < (HS - loaded) * kQSlabF / 4 * warps; i += blockDim.x) {
+    const int per = (HS - loaded) * kQSlabF / 4, w = i / per;
+    reinterpret_cast<float4*>(Qs + w * HS * kQSlabF + loaded * kQSlabF)[i - w * per] =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int i = threadIdx.x; i < (HS - loaded) * kCSlabF / 4 * kFp32Stages; i += blockDim.x) {
+    const int per = (HS - loaded) * kCSlabF / 4, st = i / per;
+    reinterpret_cast<float4*>(ring + st * HS * kCSlabF + loaded * kCSlabF)[i - st * per] =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __syncthreads();
+
+  auto issue = [&](int t) {  // chunk t: of K while t < n, then of V; one thread
+    const int st = t % kFp32Stages;
+    const int c = t < n ? t : t - n;
+    float* dst = ring + st * HS * kCSlabF;
+    tma::mbar_expect_tx(full + st, loaded * kCSlabF * sizeof(float));
+    for (int s = 0; s < loaded; ++s)
+      tma::load_4d(dst + s * kCSlabF, t < n ? &kmap : &vmap, full + st, s * tf32::kSlab, h,
+                   c * kChunk, b);
+  };
+  if (threadIdx.x == 0) {
+    const int mine = min(warps, tiles - grp * warps);  // the block's query tiles
+    tma::mbar_expect_tx(qbar, mine * loaded * kQSlabF * sizeof(float));
+    for (int w = 0; w < mine; ++w)
+      for (int s = 0; s < loaded; ++s)
+        tma::load_4d(Qs + w * HS * kQSlabF + s * kQSlabF, &qmap, qbar, s * tf32::kSlab, h,
+                     (grp * warps + w) * tf32::kRows, b);
+    for (int t = 0; t < kFp32Stages && t < 2 * n; ++t) issue(t);
+  }
+
+  const float* Qw = Qs + warp * HS * kQSlabF;
+  float* P = Ps + warp * tf32::kRows * prow;
+  float4 acc[4][HS];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int s = 0; s < HS; ++s) acc[r][s] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (active) tma::mbar_wait(qbar, 0);
+  for (int t = 0; t < 2 * n; ++t) {
+    const int st = t % kFp32Stages;
+    const float* C = ring + st * HS * kCSlabF;
+    if (active && t == n) {  // every logit is in: the softmax, under V's first copies
+      __syncwarp();
+      softmax_rows(P, prow, Lk, n * kChunk, lane);
+      __syncwarp();
+    }
+    tma::mbar_wait(full + st, (t / kFp32Stages) & 1);
+    if (active) {
+      if (t < n)
+        logits_chunk<HS>(P, prow, Qw, C, t * kChunk, Lk, scale, rg, x);
+      else
+        pv_chunk<HS>(acc, P, prow, C, (t - n) * kChunk, rg, x);
+    }
+    __syncthreads();  // every warp is done with the stage
+    if (threadIdx.x == 0 && t + kFp32Stages < 2 * n) {
+      tma::fence_proxy_async();
+      issue(t + kFp32Stages);
+    }
+  }
+  if (!active) return;
+  const int D = H * hd;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = tile * tf32::kRows + 4 * rg + r;
+    if (row >= Lq) continue;
+    float* dst = o + ((size_t)b * Lq + row) * D + (size_t)h * hd;
+#pragma unroll
+    for (int s = 0; s < HS; ++s) {
+      const int col = s * tf32::kSlab + 4 * x;
+      if (col < hd) *reinterpret_cast<float4*>(dst + col) = acc[r][s];
+    }
+  }
+}
+
+template <int HS, int MIN_BLOCKS>
+int launch_fp32_hs(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, void* o,
+                   int B, int H, int Lq, int Lk, int hd, float scale, cudaStream_t stream) {
+  auto kernel = attention_fwd_fp32_kernel<HS, MIN_BLOCKS>;
+  int device = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = tf32::configure_once(reinterpret_cast<const void*>(kernel), device, &limit);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(B * H), (unsigned)((Lq + rows_per_block - 1) / rows_per_block));
-  attention_fwd_kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), H, Lq, Lk, hd, rows_per_block, scale);
+  const int tiles = (Lq + tf32::kRows - 1) / tf32::kRows;
+  tf32::Grid grid = tf32::grid_for(device, B * H, tiles, kFp32Warps);
+  // long key rows: fewer warps a block, as many as fit
+  const size_t per = fp32_warp_bytes(HS, Lk), fixed = fp32_fixed_bytes(HS);
+  if (fixed + grid.warps * per > (size_t)limit) {
+    if (fixed + per > (size_t)limit) return (int)cudaErrorInvalidValue;
+    grid.warps = (int)(((size_t)limit - fixed) / per);
+    grid.groups = (tiles + grid.warps - 1) / grid.warps;
+  }
+  const size_t smem = fixed + grid.warps * per;
+  kernel<<<(unsigned)(grid.groups * B * H), grid.warps * 32, smem, stream>>>(
+      qm, km, vm, static_cast<float*>(o), H, Lq, Lk, hd, scale, grid.groups);
   return (int)cudaGetLastError();
+}
+
+int launch_fp32(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq,
+                int Lk, int hd, float scale, cudaStream_t stream) {
+  if (hd > 128) return (int)cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm;
+  int err = tma::encode_heads_f32(&qm, q, B, Lq, H, hd, tf32::kRows);
+  if (!err) err = tma::encode_heads_f32(&km, k, B, Lk, H, hd, kChunk);
+  if (!err) err = tma::encode_heads_f32(&vm, v, B, Lk, H, hd, kChunk);
+  if (err) return err;
+  if (hd <= 64) return launch_fp32_hs<2, 3>(qm, km, vm, o, B, H, Lq, Lk, hd, scale, stream);
+  return launch_fp32_hs<4, 2>(qm, km, vm, o, B, H, Lq, Lk, hd, scale, stream);
 }
 
 // ---- bf16: the tensor-core kernel ----------------------------------------
@@ -729,15 +892,17 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int 
 
 extern "C" {
 
-// The routes of a launch, chosen by the caller: 0 fp32 (CUDA cores), 1
-// bf16 up to kOnePassMaxKeys keys (one pass, TMA), 2 bf16 at any length
-// (the two-pass kernel, for more keys).
+// The routes of a launch, chosen by the caller: 0 fp32 (CUDA cores, up to
+// the keys whose logit rows fit one warp's block), 1 bf16 up to
+// kOnePassMaxKeys keys (one pass, TMA), 2 bf16 at any length (the two-pass
+// kernel, for more keys).
 int attention_fwd_one_pass_max_keys() { return kOnePassMaxKeys; }
 
-// Shared memory one launch of `route` needs, in bytes.
+// Shared memory one launch of `route` needs, in bytes (fp32: a block of one
+// warp, the least it shrinks to).
 size_t attention_fwd_smem_bytes(int route, int Lq, int Lk, int hd) {
   if (route == 1) return one_pass_smem_bytes(hd, one_pass_nt(Lk), kMaxWarps);
-  return route == 2 ? mma_smem_bytes(Lq, Lk, hd) : smem_bytes(Lk, hd);
+  return route == 2 ? mma_smem_bytes(Lq, Lk, hd) : fp32_smem_bytes(hd <= 64 ? 2 : 4, 1, Lk);
 }
 
 // Largest dynamic shared memory a block may opt into on `device`.

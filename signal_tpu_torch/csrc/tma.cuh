@@ -15,7 +15,8 @@
 // {64, 1, rows, 1}: one head's column block of `rows` tokens. Columns past
 // hd and rows past L are outside the tensor, so the hardware writes zeros
 // there: a head dim under 64 (8, 24) reads no column of the next head, and
-// a box past the last token reads no token of the next batch row.
+// a box past the last token reads no token of the next batch row. The fp32
+// kernels use the same layout with slabs of 32 floats (encode_heads_f32).
 
 #pragma once
 
@@ -107,6 +108,16 @@ __device__ __forceinline__ void load_4d_multicast(void* dst, const CUtensorMap* 
       : "memory");
 }
 
+// `bytes` (a multiple of 16, both ends 16-byte aligned) from global src to
+// this block's shared memory at dst, completing on bar
+__device__ __forceinline__ void load_bulk(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(saddr(dst)), "l"(src), "r"(bytes), "r"(saddr(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ int cluster_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
@@ -141,23 +152,37 @@ inline EncodeTiled encode_fn() {
   return fn;
 }
 
-// The map of a [B, L, H * hd] bf16 tensor as {hd, H, L, B}, box {64, 1,
-// rows, 1}, 128-byte swizzle, zeros outside. hd % 8 == 0 (16-byte strides)
-// and a 16-byte aligned base. Returns a cudaError.
-inline int encode_heads(CUtensorMap* map, const void* base, int B, int L, int H, int hd,
-                        int rows) {
+// A 4-D map {hd, H, L, B} of a [B, L, H * hd] tensor of `elt` bytes an
+// element, box {box_cols, 1, rows, 1}, 128-byte swizzle, zeros outside.
+// 16-byte row strides and a 16-byte aligned base. Returns a cudaError.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int elt, int box_cols,
+                      const void* base, int B, int L, int H, int hd, int rows) {
   const EncodeTiled encode = encode_fn();
   if (!encode) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)H * hd * 2,
-                                 (cuuint64_t)L * H * hd * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kSlab, 1, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * elt, (cuuint64_t)H * hd * elt,
+                                 (cuuint64_t)L * H * hd * elt};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  const CUresult r = encode(map, type, 4, const_cast<void*>(base), dims, strides, box, step,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The map of a [B, L, H * hd] bf16 tensor as {hd, H, L, B}, box {64, 1,
+// rows, 1}: slabs of kSlab columns. hd % 8 == 0.
+inline int encode_heads(CUtensorMap* map, const void* base, int B, int L, int H, int hd,
+                        int rows) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, kSlab, base, B, L, H, hd, rows);
+}
+
+// The same of an fp32 tensor, box {32, 1, rows, 1}: slabs of 32 floats,
+// also 128 bytes (tf32::kSlab). hd % 4 == 0.
+inline int encode_heads_f32(CUtensorMap* map, const void* base, int B, int L, int H, int hd,
+                            int rows) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, 32, base, B, L, H, hd, rows);
 }
 
 }  // namespace tma

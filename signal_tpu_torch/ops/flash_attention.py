@@ -25,8 +25,15 @@ ViT-B shape ([3B, 129, 768], 12 heads of 64, bf16) both do tens of FLOP
 per byte moved, against the card's ~295 FLOP/B ridge, so their floor is
 device memory. What holds them above it is their on-chip work, and their
 bf16 paths run it on the tensor cores (``mma.sync``, bf16 in, fp32
-accumulation), at the TPU kernels' rounding points. Their fp32 paths stay
-on the CUDA cores: fp32 on the tensor cores would be TF32. Both keep
+accumulation), at the TPU kernels' rounding points. Their fp32 paths are
+fp32-accurate: the forward runs on the CUDA cores, exact to fp32 (a
+register-tiled kernel, one fmaf chain an output); the backward's products
+run on the tensor cores as 3xTF32 (a tf32 high part and a remainder of
+each operand, three ``mma.sync`` a product, about 21 bits kept, as
+PyTorch's own fp32 SDPA does). TF32 itself is not turned on. Both stream
+the keys (or the queries) through a ring of chunks: the fp32 backward takes
+any length, the fp32 forward as many keys as one warp's rows of logits
+fit in shared memory (3264 at hd <= 64, 2944 at hd <= 128). Both keep
 everything of size [Lq, Lk] on chip and read the heads by stride from
 [B, L, D], so no transpose copies are made.
 
@@ -85,7 +92,7 @@ SMEM_OPTIN_BYTES = 232448
 
 
 def fwd_route(dtype: torch.dtype, Lk: int) -> str:
-    """The forward kernel a launch takes: ``fp32`` (CUDA cores), or in
+    """The forward kernel a launch takes: ``fp32`` (the CUDA cores), or in
     bf16 ``one_pass`` up to :data:`FWD_ONE_PASS_MAX_KEYS` keys and
     ``long`` (the two-pass kernel) past them."""
     if dtype == torch.float32:
@@ -106,8 +113,8 @@ def bwd_fused_smem_bytes(Lq: int, Lk: int, hd: int) -> int:
 
 
 def bwd_route(dtype: torch.dtype, Lq: int, Lk: int, hd: int) -> str:
-    """The backward kernels a launch takes: ``fp32`` (CUDA cores), or in
-    bf16 ``fused`` while Lq, Lk <= :data:`BWD_FUSED_MAX_LEN` and the
+    """The backward kernels a launch takes: ``fp32`` (3xTF32, any length),
+    or in bf16 ``fused`` while Lq, Lk <= :data:`BWD_FUSED_MAX_LEN` and the
     head's tiles fit a block's shared memory, else ``long`` (the
     statistics and key-parallel kernels). Every head dim the kernels take
     (<= 128) fits up to 160 tokens (166,896 B at hd 128), so today the
@@ -256,12 +263,13 @@ def _guard_smem(name: str, lib: ctypes.CDLL, need: int, device: torch.device, wh
 def attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        num_heads: int) -> torch.Tensor:
     """Launch ``csrc/attention_fwd.cu`` on the current stream. q [B, Lq, D],
-    k/v [B, Lk, D], fp32 or bf16, on the card → o [B, Lq, D]. In bf16 it
-    routes by the keys (:func:`fwd_route`): up to 256 the one-pass kernel,
-    past them the two-pass kernel; a shape whose route does not fit in
-    shared memory raises. Counts each launch in
-    ``attention_fwd_cuda.launches``, and those of the two-pass route also
-    in ``attention_fwd_cuda.launches_long``.
+    k/v [B, Lk, D], fp32 or bf16, on the card → o [B, Lq, D]. fp32 takes
+    its CUDA-core kernel; bf16 routes by the keys (:func:`fwd_route`): up
+    to 256 the one-pass kernel, past them the two-pass kernel; a shape
+    whose route does not fit in shared memory raises. Counts each launch
+    in ``attention_fwd_cuda.launches``, and those of the two-pass route
+    also in ``launches_long``, those of the fp32 route in
+    ``launches_fp32``.
 
     Its output carries no gradient, so it raises under grad mode when an
     input requires grad: a graph goes through :func:`flash_attention`."""
@@ -284,11 +292,13 @@ def attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"attention_fwd launch failed ({route} route): cudaError {rc}")
     attention_fwd_cuda.launches += 1
     attention_fwd_cuda.launches_long += route == "long"
+    attention_fwd_cuda.launches_fp32 += route == "fp32"
     return o
 
 
 attention_fwd_cuda.launches = 0
 attention_fwd_cuda.launches_long = 0
+attention_fwd_cuda.launches_fp32 = 0
 
 
 @torch.library.custom_op("signal_tpu_torch::attention_fwd", mutates_args=(),
@@ -323,10 +333,11 @@ def attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: tor
     and dV by key tiles), longer sequences its long route (a row-statistics
     kernel, then a key-parallel kernel on a cluster of blocks per head; up
     to 1024 keys at any head dim and any Lq; beyond that it raises). In
-    fp32 its row and column kernels. q, g [B, Lq, D], k/v [B, Lk, D], fp32
-    or bf16, on the card → (dq, dk, dv) in the same shapes and dtype.
-    Counts each call in ``attention_bwd_cuda.launches``, and those of the
-    long route also in ``attention_bwd_cuda.launches_long``."""
+    fp32 its 3xTF32 row and column kernels, at any length. q, g [B, Lq,
+    D], k/v [B, Lk, D], fp32 or bf16, on the card → (dq, dk, dv) in the
+    same shapes and dtype. Counts each call in
+    ``attention_bwd_cuda.launches``, and those of the long route also in
+    ``launches_long``, those of the fp32 route in ``launches_fp32``."""
     hd = _check("attention_bwd_cuda", num_heads, q, k, v, g)
     lib = _load("attention_bwd")
     B, Lq, D = q.shape
@@ -343,8 +354,7 @@ def attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: tor
     stats = None
     n_stats = lib.attention_bwd_stats_floats(code, B, num_heads, Lq, Lk)
     if n_stats:
-        # per query row: the softmax max, its sum (bf16: 1/sum) and
-        # rowsum(dP∘P), fp32
+        # per query row: the softmax max, 1/sum and rowsum(dP∘P), fp32
         stats = torch.empty(n_stats, dtype=torch.float32, device=q.device)
     rc = lib.attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -355,11 +365,13 @@ def attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: tor
         raise RuntimeError(f"attention_bwd launch failed ({route} route): cudaError {rc}")
     attention_bwd_cuda.launches += 1
     attention_bwd_cuda.launches_long += route == "long"
+    attention_bwd_cuda.launches_fp32 += route == "fp32"
     return dq, dk, dv
 
 
 attention_bwd_cuda.launches = 0
 attention_bwd_cuda.launches_long = 0
+attention_bwd_cuda.launches_fp32 = 0
 
 
 def _attention_setup(ctx, inputs, output):

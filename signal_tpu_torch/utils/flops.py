@@ -24,18 +24,20 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 # published peaks by card (NVIDIA data sheets, dense): bytes/s of device
-# memory, FLOP/s for bf16 on the tensor cores and for fp32 outside them.
-# Matched by substring of the CUDA device name, in this order.
+# memory, FLOP/s for bf16 on the tensor cores, for fp32 outside them, and
+# for TF32 on the tensor cores (fp32-accurate products as 3xTF32 run at a
+# third of it: the fp32 attention kernels' operation bound). Matched by
+# substring of the CUDA device name, in this order.
 PEAKS = {
-    "H100 PCIe": (2.0e12, 756e12, 51e12),
-    "H100": (3.35e12, 989e12, 67e12),       # SXM (HBM3)
-    "H200": (4.8e12, 989e12, 67e12),
+    "H100 PCIe": (2.0e12, 756e12, 51e12, 378e12),
+    "H100": (3.35e12, 989e12, 67e12, 495e12),       # SXM (HBM3)
+    "H200": (4.8e12, 989e12, 67e12, 495e12),
 }
 
 
-def peaks_for(name: Optional[str] = None) -> Tuple[float, float, float]:
-    """(bytes/s, bf16 FLOP/s, fp32 FLOP/s) of the named card (default:
-    CUDA device 0); raises for a card the table does not hold."""
+def peaks_for(name: Optional[str] = None) -> Tuple[float, float, float, float]:
+    """(bytes/s, bf16 FLOP/s, fp32 FLOP/s, TF32 FLOP/s) of the named card
+    (default: CUDA device 0); raises for a card the table does not hold."""
     name = name if name is not None else torch.cuda.get_device_name(0)
     for key, vals in PEAKS.items():
         if key in name:

@@ -39,6 +39,14 @@ _LONG_TILE_EDGES = [(2, lq, lk, 2 * hd, 2, torch.bfloat16) for hd in (64, 128)
                     for lq, lk in [(n, n) for n in (225, 257, 385, 513, 641, 769, 897, 1024)]
                     + [(257, 1), (1, 257), (1024, 17), (17, 1024)]]
 
+# the fp32 kernels (the forward's keys streamed in chunks of 32, the
+# backward's keys or queries in chunks of 16): every bf16 edge length, the
+# rings' wraps (31-33, 48-49) and a thousand keys or queries against one,
+# at head dims 64 and 128
+_FP32_EDGES = [(2, lq, lk, 2 * hd, 2, torch.float32) for hd in (64, 128)
+               for lq, lk in _EDGE_LENGTHS + [(n, n) for n in (31, 32, 33, 48, 49)]
+               + [(1, 1000), (1000, 1)]]
+
 # a tensor-parallel rank's head group of the CLIP tower (PARALLEL.MODEL_AXIS
 # 2: 6 heads, D 384; 4: 3 heads, D 192), at 129 tokens and at STRIDE_SIZE
 # 12's 211 (the backward's long route)
@@ -83,6 +91,10 @@ def cuda_device():
     *_TP_SHAPES,
     *_PIPE_SHAPES,
     *_EDGES,
+    *_FP32_EDGES,
+    # fp32: the most keys one warp's rows of logits fit, at hd 64 and 128
+    (1, 4, 3264, 64, 1, torch.float32),
+    (1, 4, 2944, 128, 1, torch.float32),
 ])
 def test_attention_kernel_matches_plain_version(cuda_device, B, Lq, Lk, D, H, dtype):
     from signal_tpu_torch.ops.flash_attention import attention_fwd_cuda, flash_attention_reference
@@ -130,11 +142,14 @@ def test_attention_fwd_routes_by_keys(cuda_device):
                                   (257, torch.bfloat16, 1), (300, torch.float32, 0)):
         q = torch.randn(2, 9, 128, device=cuda_device, generator=gen).to(dtype)
         kv = torch.randn(2, Lk, 128, device=cuda_device, generator=gen).to(dtype)
-        before = (attention_fwd_cuda.launches, attention_fwd_cuda.launches_long)
+        before = (attention_fwd_cuda.launches, attention_fwd_cuda.launches_long,
+                  attention_fwd_cuda.launches_fp32)
         attention_fwd_cuda(q, kv, kv, 2)
         torch.cuda.synchronize()
         assert (attention_fwd_cuda.launches - before[0],
-                attention_fwd_cuda.launches_long - before[1]) == (1, long_route), (Lk, dtype)
+                attention_fwd_cuda.launches_long - before[1],
+                attention_fwd_cuda.launches_fp32 - before[2]) == \
+            (1, long_route, dtype == torch.float32), (Lk, dtype)
 
 
 def test_attention_fwd_one_pass_repeats_to_the_bit(cuda_device):
@@ -184,6 +199,8 @@ def test_attention_fwd_kernel_refuses_a_graph(cuda_device):
     *_EDGES,
     *_LONG_EDGES,
     *_LONG_TILE_EDGES,
+    *_FP32_EDGES,
+    (1, 4, 1000, 64, 1, torch.float32),       # the fp32 backward takes any length
 ])
 def test_attention_bwd_kernel_matches_plain_version(cuda_device, B, Lq, Lk, D, H, dtype):
     from signal_tpu_torch.ops.flash_attention import (
@@ -218,10 +235,6 @@ def test_attention_bwd_kernel_rejects_what_it_cannot_take(cuda_device):
     from signal_tpu_torch.ops.flash_attention import attention_bwd_cuda
 
     before = attention_bwd_cuda.launches
-    q = torch.zeros(1, 4, 64, device=cuda_device)
-    kv = torch.zeros(1, 1000, 64, device=cuda_device)
-    with pytest.raises(ValueError, match="shared"):
-        attention_bwd_cuda(q, kv, kv, q, 1)               # Lk beyond shared memory
     for Lk, hd in ((1040, 64), (1040, 128)):
         # past the long route's bound: 1024 keys (a cluster of 8 blocks of
         # 128 keys) at any head dim
@@ -270,11 +283,14 @@ def test_attention_bwd_routes_by_length(cuda_device):
                                       (200, 200, torch.float32, 0)):
         q, g = (torch.randn(2, Lq, 256, device=cuda_device, generator=gen).to(dtype) for _ in "qg")
         k, v = (torch.randn(2, Lk, 256, device=cuda_device, generator=gen).to(dtype) for _ in "kv")
-        before = (fa.attention_bwd_cuda.launches, fa.attention_bwd_cuda.launches_long)
+        before = (fa.attention_bwd_cuda.launches, fa.attention_bwd_cuda.launches_long,
+                  fa.attention_bwd_cuda.launches_fp32)
         got = fa.attention_bwd_cuda(q, k, v, g, 2)
         torch.cuda.synchronize()
         assert (fa.attention_bwd_cuda.launches - before[0],
-                fa.attention_bwd_cuda.launches_long - before[1]) == (1, long_route), (Lq, Lk)
+                fa.attention_bwd_cuda.launches_long - before[1],
+                fa.attention_bwd_cuda.launches_fp32 - before[2]) == \
+            (1, long_route, dtype == torch.float32), (Lq, Lk)
         want = fa.flash_attention_bwd_reference(q, k, v, g, 2)
         tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 else dict(atol=8e-3, rtol=1e-2)
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
@@ -298,6 +314,53 @@ def test_attention_bwd_long_route_repeats_to_the_bit(cuda_device):
     assert attention_bwd_cuda.launches_long == before + 2
     for name, a, b in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("B", [192, 3])
+def test_fp32_kernels_repeat_to_the_bit(cuda_device, B):
+    """The fp32 kernels give every output to one warp and sum in one fixed
+    order: two launches at the flagship step's [192, 129, 768] and at a
+    pipeline microbatch's few heads give the same bits, both directions."""
+    from signal_tpu_torch.ops.flash_attention import attention_bwd_cuda, attention_fwd_cuda
+
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    q, k, v, g = (torch.randn(B, 129, 768, device=cuda_device, generator=gen) for _ in "qkvg")
+    assert torch.equal(attention_fwd_cuda(q, k, v, 12), attention_fwd_cuda(q, k, v, 12))
+    first = attention_bwd_cuda(q, k, v, g, 12)
+    second = attention_bwd_cuda(q, k, v, g, 12)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+def test_fp32_kernels_spill_nothing_the_backward_on_the_tensor_cores(cuda_device):
+    """Every instance of the fp32 kernels spills nothing: the forward's at
+    hd <= 64 and <= 128, the backward's rows kernel at both, its cols
+    kernel with dV's sums chained or fresh at hd <= 64 and by halves of the
+    head dim past it. The backward's hold tensor-core instructions
+    (3xTF32), the forward's none (it runs on the CUDA cores, exact to
+    fp32)."""
+    from signal_tpu_torch.ops import _build
+
+    try:
+        _build.cuda_tool("cuobjdump")
+    except RuntimeError:
+        pytest.skip("needs cuobjdump")
+    for name, kernels, tensor_cores, instances in (
+            ("attention_fwd", ("fwd_fp32_kernel",), False, 2),
+            ("attention_bwd", ("rows_tf32_kernel", "cols_tf32_kernel"), True, 5)):
+        hmma = {fn: n for fn, n in _build.hmma_counts(name).items()
+                if any(k in fn for k in kernels)}
+        report = {fn: r for fn, r in _build.ptxas_report(name).items()
+                  if any(k in fn for k in kernels)}
+        assert len(report) == instances, (name, report)
+        assert hmma.keys() <= report.keys(), (name, report, hmma)
+        if tensor_cores:
+            assert hmma.keys() == report.keys() and all(hmma.values()), (name, hmma)
+        else:
+            assert not any(hmma.values()), (name, hmma)
+        for fn, r in report.items():
+            assert r["spill_stores"] == r["spill_loads"] == 0, (fn, r)
 
 
 def test_bf16_kernels_run_on_the_tensor_cores_without_spills(cuda_device):

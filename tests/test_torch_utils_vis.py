@@ -94,8 +94,8 @@ def test_cost_analysis_and_param_count():
 
 
 def test_peaks_table():
-    bw, bf16, fp32 = flops.peaks_for("NVIDIA H100 80GB HBM3")
-    assert (bw, bf16, fp32) == (3.35e12, 989e12, 67e12)
+    bw, bf16, fp32, tf32 = flops.peaks_for("NVIDIA H100 80GB HBM3")
+    assert (bw, bf16, fp32, tf32) == (3.35e12, 989e12, 67e12, 495e12)
     assert flops.peaks_for("NVIDIA H100 PCIe")[1] == 756e12
     assert flops.peak_flops_per_chip("NVIDIA H200") == 989e12
     with pytest.raises(ValueError, match="no published peaks"):
