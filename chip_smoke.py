@@ -7,7 +7,8 @@ Phases (any failure exits non-zero; nothing is caught):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every CUDA kernel of the port from ``signal_tpu_torch/csrc``,
      one nvcc per source, all started together; each kernel's registers,
-     spill bytes and tensor-core instructions (HMMA in ``cuobjdump -sass``;
+     spill bytes and tensor-core instructions (HMMA, or the forward's long
+     route's warpgroup HGMMA, in ``cuobjdump -sass``;
      a bf16 or 3xTF32 kernel without them fails; the fp32 forward runs on
      the CUDA cores);
   3. kernels vs plain: each kernel's wrapper (attention forward and
@@ -18,13 +19,16 @@ Phases (any failure exits non-zero; nothing is caught):
      longest 1024) and of the fp32 kernels (the same lengths, the rings'
      wraps, a thousand keys or queries against one), with the tolerance
      stated; two launches equal to the bit (the long route at [192, 211,
-     768], the fp32 routes at [192, 129, 768] and 3 rows); the fp32
+     768], the forward's long route at [192, 311, 768], the fp32 routes
+     at [192, 129, 768] and 3 rows); the bf16 forward's long route past
+     256 keys at its own edges (each side of a 64-key chunk as its ring
+     wraps, 1024 keys, 1 and 3 queries against many); the fp32
      routes' error against fp64 at the main shapes (the backward's also at
      211 tokens, at hd 128 and over 1000 queries at hd 64 and 128), at
      most 4x the plain fp32 version's; kernel, plain and library times (CUDA events)
      and the achieved TFLOP/s, also at the variants' lengths (141, 193,
-     211, 223 forward; 193 and 211 backward), the two-pass bf16 forward
-     past 256 keys ([128, 3, 384], [192, 311, 768]) and at deit_small's D
+     211, 223 forward; 193 and 211 backward), the bf16 forward's long
+     route past 256 keys ([128, 3, 384], [192, 311, 768]) and at deit_small's D
      = 384 with 6 heads ([384, 129, 384] and [192, 129, 384] forward,
      [192, 129, 384] backward); fp32 bounds count products as 3xTF32 at a
      third of the TF32 rate;
@@ -77,8 +81,10 @@ Phases (any failure exits non-zero; nothing is caught):
      and the share of time the card waits on the host;
  14. the CLIP tower's variants at the flagship widths (random weights from
      SOLVER.SEED): ADAPTER, PROMPT, PROMPT + ADAPTER, FROZEN (LoRA r 8),
-     MOE_EXPERTS 4 at MOE_TOPK 1 and 2 (capacity 1.25), and STRIDE_SIZE 12
-     (211 tokens: the backward's long route): ``forward_eval`` at B = 128
+     MOE_EXPERTS 4 at MOE_TOPK 1 and 2 (capacity 1.25), STRIDE_SIZE 12
+     (211 tokens: the backward's long route), and a 384×128 input at
+     STRIDE_SIZE 12 (311 tokens: the forward's long route too, the only
+     driven path that reaches it): ``forward_eval`` at B = 128
      and one train step at B = 64, kernel path against plain path as
      phases 4 and 6; launches per eval forward, train forward and backward
      (12 / 24 / 12, the prompted towers 36 / 72 / 36), ms per step by the
@@ -195,15 +201,26 @@ def log(msg: str) -> None:
 # length at or next to a tile edge, at head dims 8 and 24 (a zero-padded
 # contraction), 64 and 128; cross attention both ways (B = 2, 2 heads).
 # The forward's one-pass kernel holds 64, 144, 224 or 256 keys of a row in
-# registers (143-145, 208-225, 255-256) and gives way to the two-pass
-# kernel past 256 (257); the backward's fused kernel takes up to 160
-# (159-161), holding 136 or 160 keys of a row (136-137)
+# registers (143-145, 208-225, 255-256) and gives way to the long route past
+# 256 (257); the backward's fused kernel takes up to 160 (159-161), holding
+# 136 or 160 keys of a row (136-137)
 EDGE_LENGTHS = [(n, n) for n in (1, 15, 16, 17, 129, 136, 137, 143, 144, 145, 159, 160, 161, 192, 193,
                                  *range(208, 226), 255, 256, 257)] + [
     (1, 145), (145, 1), (17, 129), (129, 16), (15, 17), (17, 256), (256, 17), (3, 257),
     (257, 3)]
 EDGES = [(f"edge-{lq}x{lk}-hd{hd}", 2, lq, lk, 2 * hd, 2)
          for hd in (8, 24, 64, 128) for lq, lk in EDGE_LENGTHS]
+# the bf16 forward's long route past 256 keys (K and V streamed in chunks of
+# 64 keys through a ring of four stages at hd <= 64, three past it, each
+# chunk loaded three times; a block takes 64 query rows): each side of a
+# chunk's edge as the ring wraps, a 384×128 input's 311 tokens, its 1024
+# keys, and 1 or 3 queries (a block's rows nearly all past Lq) and 17 or
+# 145 (a block's last tiles past Lq) against many keys, at head dims 8, 64
+# and 128
+FWD_LONG_EDGES = [(f"edge-{lq}x{lk}-hd{hd}", 2, lq, lk, 2 * hd, 2) for hd in (8, 64, 128)
+                  for lq, lk in [(n, n) for n in (311, 320, 321, 383, 384, 385, 447, 448, 449,
+                                                  511, 512, 513, 575, 576, 577, 768, 769, 1024)]
+                  + [(1, 1024), (3, 1024), (3, 384), (17, 1024), (145, 300), (1024, 300)]]
 # past 160 tokens either way (ops/flash_attention.bwd_route) the bf16
 # backward takes its long route (a statistics kernel, then a key-parallel
 # kernel that streams the queries in chunks of 32): lengths across its
@@ -246,25 +263,6 @@ def fp64_errors(got, want, want64):
     fp32 version's → (kernel's, plain's)."""
     return ([(a.double() - c).abs().max().item() for a, c in zip(got, want64)],
             [(b.double() - c).abs().max().item() for b, c in zip(want, want64)])
-
-
-def attention64(q, k, v, H):
-    """softmax(scale q.k^T).v per head in fp64: the yardstick of the fp32
-    kernels' error (the plain versions compute in fp32)."""
-    qh, kh, vh = (t.double().unflatten(-1, (H, -1)).transpose(1, 2) for t in (q, k, v))
-    p = ((qh @ kh.transpose(-1, -2)) * qh.shape[-1] ** -0.5).softmax(-1)
-    return (p @ vh).transpose(1, 2).flatten(2)
-
-
-def attention_bwd64(q, k, v, g, H):
-    """(dq, dk, dv) of :func:`attention64` at output gradient g, in fp64."""
-    qh, kh, vh, gh = (t.double().unflatten(-1, (H, -1)).transpose(1, 2) for t in (q, k, v, g))
-    scale = qh.shape[-1] ** -0.5
-    p = ((qh @ kh.transpose(-1, -2)) * scale).softmax(-1)
-    dp = gh @ vh.transpose(-1, -2)
-    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
-    out = ((ds @ kh) * scale, (ds.transpose(-1, -2) @ qh) * scale, p.transpose(-1, -2) @ gh)
-    return tuple(t.transpose(1, 2).flatten(2) for t in out)
 
 
 # the fp32 backward's error against fp64, each output at most 4x the plain
@@ -332,6 +330,7 @@ def time_train_steps(torch, step, batch, n: int = 5):
     torch.cuda.reset_peak_memory_stats()
     attention_fwd_cuda.launches = attention_bwd_cuda.launches = 0
     attention_bwd_cuda.launches_long = 0
+    fwd_long = attention_fwd_cuda.launches_long  # read, not zeroed: main() counts it whole
     t0 = time.perf_counter()
     losses = [step(*batch)[0] for _ in range(n)]
     torch.cuda.synchronize()
@@ -339,6 +338,8 @@ def time_train_steps(torch, step, batch, n: int = 5):
     return {"ms_per_step": ms, "samples_per_s": batch[1].shape[0] / ms * 1e3,
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "attention_fwd_launches_per_step": attention_fwd_cuda.launches / n,
+            "attention_fwd_long_launches_per_step": (attention_fwd_cuda.launches_long
+                                                     - fwd_long) / n,
             "attention_bwd_launches_per_step": attention_bwd_cuda.launches / n,
             "attention_bwd_long_launches_per_step": attention_bwd_cuda.launches_long / n,
             "losses": [x.item() for x in losses]}
@@ -403,6 +404,7 @@ def check_attention(torch, report, peaks):
 
     from signal_tpu_torch.ops.flash_attention import (
         FWD_ONE_PASS_MAX_KEYS,
+        attention64,
         attention_fwd_cuda,
         flash_attention_reference,
         fwd_route,
@@ -419,19 +421,22 @@ def check_attention(torch, report, peaks):
         ("cross-fp32", 128, 3, 384, 512, 8, torch.float32),
         ("odd-bf16", 16, 9, 9, 384, 6, torch.bfloat16),
         ("odd-fp32", 16, 9, 9, 384, 6, torch.float32),
-        ("long-hd128-bf16", 8, 17, 300, 256, 2, torch.bfloat16),   # past 256 keys: two passes
+        ("long-hd128-bf16", 8, 17, 300, 256, 2, torch.bfloat16),   # past 256 keys: the long route
         # deit_small's eval and train shapes: D = 384, 6 heads of 64
         ("d384-eval-bf16", 384, 129, 129, 384, 6, torch.bfloat16),
         ("d384-train-bf16", 192, 129, 129, 384, 6, torch.bfloat16),
     ] + tp_cases(torch) + pipe_cases(torch) + clipreid_cases(torch) + [
         (f"len{L}-bf16", 192, L, L, 768, 12, torch.bfloat16) for L in LONG_LENGTHS] + [
         ("len211-fp32", 192, 211, 211, 768, 12, torch.float32),
-        # the two-pass bf16 route past 256 keys at a 384×128 input's
+        # the bf16 forward's long route past 256 keys at a 384×128 input's
         # STRIDE_SIZE 12 length (31 × 10 + 1 tokens), timed beside cross-bf16
-        ("len311-bf16", 192, 311, 311, 768, 12, torch.bfloat16)] + [
-        (*edge, torch.bfloat16) for edge in EDGES] + [(*edge, torch.float32) for edge in FP32_EDGES]
+        ("len311-bf16", 192, 311, 311, 768, 12, torch.bfloat16),
+        # and at that path's eval shape: B 128 × 3 modalities
+        ("len311-eval-bf16", 384, 311, 311, 768, 12, torch.bfloat16)] + [
+        (*edge, torch.bfloat16) for edge in EDGES + FWD_LONG_EDGES] + [
+        (*edge, torch.float32) for edge in FP32_EDGES]
     rows = {}
-    long_first = 0  # two-pass launches of the cases' first calls (not of timings)
+    long_first = 0  # long-route launches of the cases' first calls (not of timings)
     for name, B, Lq, Lk, D, H, dt in cases:
         q = torch.randn(B, Lq, D, device="cuda", generator=gen).to(dt)
         k = torch.randn(B, Lk, D, device="cuda", generator=gen).to(dt)
@@ -451,9 +456,9 @@ def check_attention(torch, report, peaks):
         row = {"shape": [B, Lq, Lk, D, H], "dtype": str(dt).split(".")[1],
                "max_abs_err": err.max().item(), "tolerance": tol_text,
                "route": fwd_route(dt, Lk)}
-        if name in ("len211-bf16", *FP32_REPEATS):
-            # the one-pass and fp32 kernels sum in one fixed order: a second
-            # launch gives the same bits
+        if name in ("len211-bf16", "len311-bf16", *FP32_REPEATS):
+            # the one-pass, long-route and fp32 kernels sum in one fixed
+            # order: a second launch gives the same bits
             again = attention_fwd_cuda(q, k, v, H)
             torch.cuda.synchronize()
             row["repeat_bit_identical"] = torch.equal(got, again)
@@ -494,10 +499,10 @@ def check_attention(torch, report, peaks):
     report["attention_fwd_long_route"] = {
         "cases": long_cases, "launches": long_first,
         "launches_with_timings": attention_fwd_cuda.launches_long - long_before}
-    log(f"[kernel] attention_fwd two-pass route (past {FWD_ONE_PASS_MAX_KEYS} keys): "
+    log(f"[kernel] attention_fwd long route (past {FWD_ONE_PASS_MAX_KEYS} keys): "
         f"{json.dumps(report['attention_fwd_long_route'])}")
     if report["attention_fwd_long_route"]["launches"] != len(long_cases):
-        raise SystemExit("attention_fwd: the two-pass route's launches do not match its cases")
+        raise SystemExit("attention_fwd: the long route's launches do not match its cases")
     report["attention"] = rows
     return rows
 
@@ -507,6 +512,7 @@ def check_attention_bwd(torch, report, peaks):
     import torch.nn.functional as F
 
     from signal_tpu_torch.ops.flash_attention import (
+        attention_bwd64,
         attention_bwd_cuda,
         bwd_route,
         flash_attention_bwd_reference,
@@ -526,6 +532,8 @@ def check_attention_bwd(torch, report, peaks):
         # (211 tokens) and a 384×128 input (193)
         ("long211-bf16", 192, 211, 211, 768, 12, torch.bfloat16),
         ("long193-bf16", 192, 193, 193, 768, 12, torch.bfloat16),
+        # and a 384×128 input at STRIDE_SIZE 12 (311 tokens)
+        ("long311-bf16", 192, 311, 311, 768, 12, torch.bfloat16),
         ("long211-fp32", 192, 211, 211, 768, 12, torch.float32),
         # deit_small's train shape: D = 384, 6 heads of 64
         ("d384-train-bf16", 192, 129, 129, 384, 6, torch.bfloat16),
@@ -581,7 +589,8 @@ def check_attention_bwd(torch, report, peaks):
                 bytes=nbytes, flops=flops, bound_ms=bound, bound_by=by)
             row["tflops"] = flops / row["ms"] / 1e9
             del qh, kh, vh, o, gh
-        if name in ("main-bf16", "pipe-rows3-l129-bf16", "long211-bf16", *FP32_REPEATS):
+        if name in ("main-bf16", "pipe-rows3-l129-bf16", "long211-bf16", "long311-bf16",
+                    *FP32_REPEATS):
             # every route sums in fixed orders with no atomics (the fused
             # kernel's cluster blocks share whole tiles; the long route adds
             # dQ over a head's key blocks in rank order; the fp32 kernels
@@ -641,9 +650,9 @@ def check_build(torch, report):
             kernels[short] = row
             log(f"[build] {lib}: {short}: {row['registers']} registers, spill stores "
                 f"{row['spill_stores']} B, spill loads {row['spill_loads']} B, "
-                f"HMMA {row['hmma']}")
-            if any(k in short for k in ("mma_kernel", "onepass_kernel", "fused_kernel",
-                                        "tf32_kernel")) and row["hmma"] == 0:
+                f"HMMA/HGMMA {row['hmma']}")
+            if any(k in short for k in ("mma_kernel", "onepass_kernel", "fwd_long_kernel",
+                                        "fused_kernel", "tf32_kernel")) and row["hmma"] == 0:
                 raise SystemExit(f"{short} has no tensor-core instruction")
     report["build"] = kernels
     log(f"[build] {sorted(libs)} in {report['build_s']:.1f} s")
@@ -1748,6 +1757,10 @@ VARIANTS = [
     ("moe4_top1", ["MODEL.MOE_EXPERTS", "4", "MODEL.MOE_TOPK", "1", "MODEL.MOE_CAPACITY", "1.25"]),
     ("moe4_top2", ["MODEL.MOE_EXPERTS", "4", "MODEL.MOE_TOPK", "2", "MODEL.MOE_CAPACITY", "1.25"]),
     ("stride12", ["MODEL.STRIDE_SIZE", "[12, 12]"]),
+    # a 384×128 person crop at STRIDE_SIZE 12: 31 × 10 + 1 = 311 tokens, the
+    # forward's long route past 256 keys (and the backward's past 160)
+    ("input384_stride12", ["INPUT.SIZE_TRAIN", "[384, 128]", "INPUT.SIZE_TEST", "[384, 128]",
+                           "MODEL.STRIDE_SIZE", "[12, 12]"]),
 ]
 
 
@@ -1763,7 +1776,9 @@ def check_variants(torch, report):
     eval forward, train forward and backward, ms per step by the host
     clock and device time, peak memory. → the launches of the driven paths
     (the counts are zeroed before each and read after; the comparisons'
-    launches are not counted)."""
+    launches are not counted), and as ``attention_fwd_long_phase`` every
+    launch of the forward's long route in the phase, the comparisons'
+    included (main() holds the process's count to it)."""
     from signal_tpu_torch.config import load_config
     from signal_tpu_torch.data.augment import normalize_images
     from signal_tpu_torch.engine.train import make_train_step
@@ -1773,7 +1788,9 @@ def check_variants(torch, report):
 
     C, B_eval = 171, 128
     gen = torch.Generator(device="cuda").manual_seed(14)
-    driven = {"attention_fwd": 0, "attention_bwd": 0, "attention_bwd_long": 0}
+    driven = {"attention_fwd": 0, "attention_fwd_long": 0, "attention_bwd": 0,
+              "attention_bwd_long": 0}
+    long_phase = attention_fwd_cuda.launches_long
     out = {}
     for name, opts in VARIANTS:
         t0 = time.perf_counter()
@@ -1882,25 +1899,31 @@ def check_variants(torch, report):
         evaluate()
         torch.cuda.synchronize()
         attention_fwd_cuda.launches = attention_bwd_cuda.launches = 0
+        long0 = attention_fwd_cuda.launches_long
         t1 = time.perf_counter()
         for _ in range(3):
             evaluate()
         torch.cuda.synchronize()
         row["eval_ms_per_batch"] = (time.perf_counter() - t1) / 3 * 1e3
         row["eval_launches_per_forward"] = attention_fwd_cuda.launches / 3
+        row["eval_long_launches_per_forward"] = (attention_fwd_cuda.launches_long - long0) / 3
         driven["attention_fwd"] += attention_fwd_cuda.launches
+        driven["attention_fwd_long"] += attention_fwd_cuda.launches_long - long0
         optimizer = make_optimizer(model, cfg)
         set_lr(optimizer, *schedule_coeffs(cfg, 1))
         step = make_train_step(model, cfg, C, optimizer, device_augment=True,
                                gen=torch.Generator(device="cuda").manual_seed(4))
         timed = time_train_steps(torch, step, (u8, pids, cams), n=3)
         driven["attention_fwd"] += round(timed["attention_fwd_launches_per_step"] * 3)
+        driven["attention_fwd_long"] += round(timed["attention_fwd_long_launches_per_step"] * 3)
         driven["attention_bwd"] += round(timed["attention_bwd_launches_per_step"] * 3)
         driven["attention_bwd_long"] += round(timed["attention_bwd_long_launches_per_step"] * 3)
         row.update(train_ms_per_step=timed["ms_per_step"],
                    train_samples_per_s=timed["samples_per_s"],
                    train_peak_memory_gib=timed["peak_memory_gib"],
                    train_fwd_launches_per_step=timed["attention_fwd_launches_per_step"],
+                   train_fwd_long_launches_per_step=timed[
+                       "attention_fwd_long_launches_per_step"],
                    train_bwd_launches_per_step=timed["attention_bwd_launches_per_step"],
                    train_bwd_long_launches_per_step=timed[
                        "attention_bwd_long_launches_per_step"],
@@ -1919,6 +1942,11 @@ def check_variants(torch, report):
         if row["train_bwd_long_launches_per_step"] != long_want:
             raise SystemExit(f"{name}: {row['train_bwd_long_launches_per_step']} long-route "
                              f"launches a step, want {long_want}")
+        # the forward's long route past 256 keys: every launch of such a path
+        fwd_long = (row["eval_long_launches_per_forward"], row["train_fwd_long_launches_per_step"])
+        if fwd_long != ((n, 2 * n) if tokens > 256 else (0, 0)):
+            raise SystemExit(f"{name}: the forward's long route launched {fwd_long} times "
+                             f"(eval forward, train step) at {tokens} tokens")
         if not all(math.isfinite(x) for x in row["train_losses"]):
             raise SystemExit(f"{name}: non-finite train loss {row['train_losses']}")
         out[name] = row
@@ -1927,6 +1955,7 @@ def check_variants(torch, report):
     report["variants"] = out
     if min(driven.values()) == 0:
         raise SystemExit(f"the variants left a kernel unlaunched: {driven}")
+    driven["attention_fwd_long_phase"] = attention_fwd_cuda.launches_long - long_phase
     return driven
 
 
@@ -3577,8 +3606,9 @@ def main() -> int:
     peaks = peaks_for(name)
     rows = check_attention(torch, report, peaks)
     bwd = check_attention_bwd(torch, report, peaks)
-    # from here on every driven path runs at most 256 keys: the forward's
-    # two-pass route must not be reached (counted here and in each rank)
+    # from here on only phase 14's 384×128 input at STRIDE_SIZE 12 runs past
+    # 256 keys: the forward's long route is reached by its launches alone
+    # (counted here, in phase 14 and in each rank)
     from signal_tpu_torch.ops.flash_attention import (
         FWD_ONE_PASS_MAX_KEYS,
         attention_bwd_cuda,
@@ -3616,13 +3646,15 @@ def main() -> int:
     if not all(fp32_driven):
         raise SystemExit(f"the driven paths launched the fp32 kernels {fp32_driven} times "
                          "(forward, backward): each at least once")
-    fwd_long_driven = attention_fwd_cuda.launches_long + sum(
+    fwd_long_ranks = sum(
         n.get("attention_fwd_long", 0) for group in (world_launches, axis_launches, pipe_launches)
         for n in group.values())
-    if fwd_long_driven:
-        raise SystemExit(f"the driven paths reached the forward's two-pass route "
-                         f"{fwd_long_driven} times: every shipped shape has at most "
-                         f"{FWD_ONE_PASS_MAX_KEYS} keys")
+    if (attention_fwd_cuda.launches_long, fwd_long_ranks) != (
+            variant_launches["attention_fwd_long_phase"], 0):
+        raise SystemExit(f"the forward's long route ran {attention_fwd_cuda.launches_long} times "
+                         f"in this process ({variant_launches['attention_fwd_long_phase']} in "
+                         f"phase 14) and {fwd_long_ranks} times in the ranks: only phase 14's "
+                         f"384×128 input at STRIDE_SIZE 12 runs past {FWD_ONE_PASS_MAX_KEYS} keys")
 
     def entry(kernel, source, replaces, rows, launches):
         bf16, fp32 = rows["main-bf16"], rows["main-fp32"]
@@ -3669,22 +3701,10 @@ def main() -> int:
                           "signal_tpu/ops/flash_attention.py:123", bwd, fp32_driven[1])
     fwd = entry("attention_fwd", "signal_tpu_torch/csrc/attention_fwd.cu",
                 "signal_tpu/ops/flash_attention.py:50", rows, train_launches["attention_fwd"])
-    # the bf16 forward's two routes: the one-pass kernel (every driven path)
-    # and the two-pass kernel past 256 keys (phase 3's cases only)
+    # the bf16 forward's one-pass kernel up to 256 keys (every driven path
+    # but phase 14's 384×128 input); its long route has its own entry below
     fwd.update(kernel="attention_fwd_onepass_kernel", one_pass_max_keys=FWD_ONE_PASS_MAX_KEYS,
                repeat_bit_identical=rows["len211-bf16"]["repeat_bit_identical"],
-               launches_long=fwd_long_driven,
-               long_route={"kernel": "attention_fwd_mma_kernel",
-                           "launches_phase3": report["attention_fwd_long_route"]["launches"],
-                           "cases_phase3": report["attention_fwd_long_route"]["cases"],
-                           "max_abs_err": max(rows[n]["max_abs_err"]
-                                              for n in report["attention_fwd_long_route"]["cases"]),
-                           # past 256 keys: SIM-style cross attention and a
-                           # 384×128 input's STRIDE_SIZE 12 length
-                           **{f"{key}_{n.removesuffix('-bf16')}": rows[n][key]
-                              for n in ("cross-bf16", "len311-bf16")
-                              for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                          "library_ms", "tflops", "shape")}},
                ptxas={short: report["build"][short] for short in report["build"]
                       if "onepass_kernel" in short})
     fwd.update(launches_eval=eval_launches, launches_recipe=recipe_launches["attention_fwd"],
@@ -3744,12 +3764,12 @@ def main() -> int:
     long_rows = {n: r for n, r in bwd.items()
                  if r["dtype"] == "bfloat16" and max(r["shape"][1:3]) > 160}
     bwd_entry["max_abs_err_long_route"] = max(r["max_abs_err"] for r in long_rows.values())
-    for n in ("long211-bf16", "long193-bf16"):
+    for n in ("long211-bf16", "long193-bf16", "long311-bf16"):
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "tflops", "shape"):
             bwd_entry[f"{key}_{n.removesuffix('-bf16')}"] = bwd[n][key]
     # the long route past 160 tokens (two kernels a launch), at STRIDE_SIZE
     # 12's shape; its launches are those of phase 14's driven paths
-    long211, long193 = bwd["long211-bf16"], bwd["long193-bf16"]
+    long211, long193, long311 = (bwd[f"long{L}-bf16"] for L in (211, 193, 311))
     long_entry = {
         "name": "attention_bwd_long_route", "route": "cuda",
         "source": "signal_tpu_torch/csrc/attention_bwd.cu",
@@ -3765,13 +3785,44 @@ def main() -> int:
                                          "library_ms", "tflops", "shape")},
         **{f"{key}_long193": long193[key] for key in ("ms", "plain_ms", "bound_ms",
                                                       "library_ms", "tflops", "shape")},
+        # the input384_stride12 path's train shape
+        **{f"{key}_long311": long311[key] for key in ("ms", "plain_ms", "bound_ms",
+                                                      "library_ms", "tflops", "shape",
+                                                      "max_abs_err")},
         "repeat_bit_identical": long211["repeat_bit_identical"],
+        "repeat_bit_identical_long311": long311["repeat_bit_identical"],
         "cases_phase3": len(report["attention_bwd_long_route"]["cases"]),
         "launches_phase3": report["attention_bwd_long_route"]["launches"],
         "ptxas": {short: report["build"][short] for short in report["build"]
                   if "stats_mma" in short or "long_mma" in short},
     }
-    kernels = [fwd, bwd_entry, long_entry, fp32_fwd, fp32_bwd]
+    # the bf16 forward's long route past 256 keys, at a 384×128 input's
+    # STRIDE_SIZE 12 shape and at SIM-style cross attention; its launches
+    # are those of phase 14's input384_stride12 path (eval forwards and
+    # train steps)
+    l311, l311_eval, cross = rows["len311-bf16"], rows["len311-eval-bf16"], rows["cross-bf16"]
+    driven384 = report["variants"]["input384_stride12"]
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops", "shape")
+    fwd_long_entry = {
+        "name": "attention_fwd_long_kernel", "route": "cuda",
+        "source": "signal_tpu_torch/csrc/attention_fwd.cu",
+        "replaces": "signal_tpu/ops/flash_attention.py:50",
+        "launches": variant_launches["attention_fwd_long"],
+        "launches_phase14_with_comparisons": variant_launches["attention_fwd_long_phase"],
+        "launches_phase3": report["attention_fwd_long_route"]["launches"],
+        "cases_phase3": len(report["attention_fwd_long_route"]["cases"]),
+        "max_abs_err": max(rows[n]["max_abs_err"]
+                           for n in report["attention_fwd_long_route"]["cases"]),
+        **{key: l311[key] for key in timed},
+        **{f"{key}_cross": cross[key] for key in timed},
+        **{f"{key}_eval": l311_eval[key] for key in (*timed, "max_abs_err")},
+        "repeat_bit_identical": l311["repeat_bit_identical"],
+        "eval_ms_per_batch_input384_stride12": driven384["eval_ms_per_batch"],
+        "train_device_ms_per_step_input384_stride12": driven384["train_device_busy_ms_per_step"],
+        "ptxas": {short: report["build"][short] for short in report["build"]
+                  if "fwd_long_kernel" in short},
+    }
+    kernels = [fwd, fwd_long_entry, bwd_entry, long_entry, fp32_fwd, fp32_bwd]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     out = REPO / "chiprun_out"

@@ -12,8 +12,9 @@ source, all started together:
 * ``staging_only``: each bf16 kernel moves its operands into shared memory
   and does no math and no stores (the device-memory reads alone; the
   forward's one-pass kernel still waits for every copy and keeps its ring
-  of query tiles turning, the backward's fused kernel waits for every copy
-  and skips both phases' tiles);
+  of query tiles turning, its long-route kernel's consumer warps wait for
+  every chunk of the ring and release it, the backward's fused kernel
+  waits for every copy and skips both phases' tiles);
 * ``math_only``: each bf16 kernel skips the copies (and the waits for them)
   and computes on whatever shared memory holds (the on-chip work and the
   stores).
@@ -21,9 +22,9 @@ source, all started together:
 and times each bf16 kernel in each version at the main paths' shapes, with
 CUDA events, in turns (every version twice): the forward's one-pass kernel
 at [384, 129, 768], [192, 129, 768] and STRIDE_SIZE 12's [192, 211, 768]
-(12 heads of 64), and at the same shapes the two-pass kernel that takes
-keys past 256 (launched through its route directly: the design the
-one-pass kernel replaced at these lengths); the backward's fused kernel at
+(12 heads of 64), and at the same shapes and at a 384×128 input's
+STRIDE_SIZE 12 shape [192, 311, 768] the long-route kernel that takes keys
+past 256 (launched through its route directly); the backward's fused kernel at
 [192, 129, 768], and the backward's long route (its statistics and dK/dV
 kernels together) at [192, 211, 768] and a 384×128 input's [192, 193,
 768]. Only the ``as_built`` outputs mean anything; the script also reports
@@ -46,7 +47,15 @@ REPO = Path(__file__).resolve().parent.parent
 
 # the text each cut replaces in the sources; the script fails if one is
 # missing, so an edited kernel cannot be profiled by a stale cut
-_STAGED = "  cp_async_wait_all();\n  __syncthreads();\n"
+# the forward's long-route kernel: its consumer warps take every chunk of
+# the ring and release it, with no math and no stores
+_LONG_FWD_CONSUMERS = ("  const float sl2 = scale * 1.4426950408889634f;\n"
+                       "  // S = Q.K^T of the 64 rows against the chunk in stage st")
+_LONG_FWD_STAGING = ("  if (Lq > 0) {\n    for (int t = 0; t < 3 * n; ++t) {\n"
+                     "      tma::mbar_wait(full + t % ST, (t / ST) & 1);\n"
+                     "      __syncwarp();\n"
+                     "      if (lane == 0) tma::mbar_arrive(empty + t % ST);\n"
+                     "    }\n    return;\n  }\n" + _LONG_FWD_CONSUMERS)
 # the long route's two kernels: each chunk of their rings skips its math
 # once it has landed, and the dK/dV kernel returns before its cluster's
 # last barrier (no block has arrived at it) and its stores
@@ -63,9 +72,7 @@ _ONE_PASS_REST = ("    softmax_pv_store(s, Vs, kv_slab, Lk, hd, scale, dst, D, L
                   "lane);\n")
 _CUTS = {
     "staging_only": {
-        "attention_fwd.cu": [("  stage_async(Vs, v + koff, Lk, LKP, hd, D);\n" + _STAGED,
-                              "  stage_async(Vs, v + koff, Lk, LKP, hd, D);\n" + _STAGED
-                              + "  if (Lq > 0) return;\n"),
+        "attention_fwd.cu": [(_LONG_FWD_CONSUMERS, _LONG_FWD_STAGING),
                              # the one-pass kernel: no products, no softmax, no stores
                              (_ONE_PASS_QK, ""), (_ONE_PASS_REST, "")],
         "attention_bwd.cu": [*((loop, loop + "    if (Lq > 0) continue;\n")
@@ -74,11 +81,8 @@ _CUTS = {
                              (_LONG_TAIL, "  if (Lq > 0) return;\n" + _LONG_TAIL)],
     },
     "math_only": {
-        "attention_fwd.cu": [("  stage_async(Qs, q + qoff, Lq - row0, rows, hd, D);\n", ""),
-                             ("  stage_async(Ks, k + koff, Lk, LKP, hd, D);\n", ""),
-                             ("  stage_async(Vs, v + koff, Lk, LKP, hd, D);\n", ""),
-                             # the one-pass kernel: no TMA copy is issued or
-                             # waited for
+        "attention_fwd.cu": [# the one-pass and long-route kernels: no TMA
+                             # copy is issued or waited for
                              ("tma::load_4d", "if (h < 0) tma::load_4d"),
                              ("tma::mbar_expect_tx(", "if (h < 0) tma::mbar_expect_tx("),
                              ("tma::mbar_wait(", "if (h < 0) tma::mbar_wait(")],
@@ -160,7 +164,7 @@ def main() -> int:
     fwd_shapes = ((384, 129), (192, 129), (192, 211))
     long_lengths = (211, 193)
     long_data = {L: [torch.randn(192, L, 768, device="cuda", generator=gen).bfloat16()
-                     for _ in range(4)] for L in long_lengths}
+                     for _ in range(4)] for L in (*long_lengths, 311)}
     # the long route's statistics scratch: 3 B H Lq rounded up to 32, fp32
     long_stats = {L: torch.empty(3 * 192 * 12 * ((L + 31) // 32 * 32), device="cuda")
                   for L in long_lengths}
@@ -183,10 +187,12 @@ def main() -> int:
         fwd.attention_fwd.argtypes = [p] * 4 + [i] * 6 + [ctypes.c_float, p]
         bwd.attention_bwd.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float, p]
         calls = {}
-        for B, L in fwd_shapes:
+        for B, L in (*fwd_shapes, (192, 311)):
             q, k, v, g = data[B] if L == 129 else long_data[L]
             o = torch.empty_like(q)
-            for tag, route in (("fwd", "one_pass"), ("fwd two-pass", "long")):
+            routes = (("fwd", "one_pass"), ("fwd long", "long")) if L <= 256 else \
+                (("fwd long", "long"),)
+            for tag, route in routes:
                 calls[f"{tag} [{B}, {L}, 768]"] = (
                     o, lambda q=q, k=k, v=v, o=o, B=B, L=L, code=FWD_ROUTES[route]:
                     fwd.attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

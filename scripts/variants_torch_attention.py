@@ -7,6 +7,8 @@ one NVIDIA GPU.
         [--baseline DIR]
     python3 scripts/variants_torch_attention.py --fp32 [scripts/attention_fp32_variants.json] \
         [--baseline DIR ...] [--steps] [--tests]
+    python3 scripts/variants_torch_attention.py --long [scripts/attention_fwd_long_variants.json] \
+        [--baseline DIR]
 
 The JSON file names each variant by a list of text cuts ``[old, new]`` of
 ``signal_tpu_torch/csrc/attention_fwd.cu`` (with ``--bwd``:
@@ -15,8 +17,8 @@ builds every variant with ``nvcc`` into ``build/variants_attention/``
 (git-ignored; one ``nvcc`` per variant, all started together; a cut whose
 text is missing fails the script) and reports each instance's registers
 and spill bytes of the kernel under study. The forward: it times the
-one-pass route of each variant, the first variant's two-pass route (the
-kernel the one-pass route replaced up to 256 keys) and
+one-pass route of each variant, the first variant's long route (route 2,
+which takes any length) at the same lengths and
 ``torch.nn.functional.scaled_dot_product_attention``. The backward: the
 fused route of each variant, SDPA's backward alone (``autograd.grad`` of
 its output) and, with ``--baseline DIR``, the fused route of
@@ -49,6 +51,17 @@ at B = 64 (``torch.profiler``), in turns. ``--tests`` runs the whole-step
 fp32 card tests (``tests/test_torch_cuda.py``) with each variant's
 kernels, and with each baseline's forward or backward beside the source's
 other direction. Writes ``chiprun_out/variants_torch_attention_fp32.json``.
+
+``--long``: the bf16 forward's route past 256 keys (route 2,
+``attention_fwd_long_kernel``). Its variants are text cuts of
+``attention_fwd.cu``, as the forward's; each is timed in turns beside
+``--baseline DIR``'s route 2 (an earlier tree's kernel there) and SDPA at a
+384×128 input's STRIDE_SIZE 12 shape ``[192, 311, 768]``, SIM-style cross
+attention ``[128, 3, 384]`` (8 heads of 64) and 1024 keys at hd 64 and 128,
+each held to the plain version (bf16 atol 1.6e-2) and launched twice for
+the same bits. A shape whose route needs more shared memory than the card
+allows a block (the parent's kernel past about 780 keys) is reported as
+not taken. Writes ``chiprun_out/variants_torch_attention_long.json``.
 """
 
 from __future__ import annotations
@@ -69,6 +82,11 @@ SHAPES = ((384, 129, 768, 12), (192, 129, 768, 12), (192, 211, 768, 12), (192, 2
 # the backward's fused route: the train step, a TP 4 rank, a pipeline
 # microbatch of 3 rows
 BWD_SHAPES = ((192, 129, 768, 12), (192, 129, 192, 3), (3, 129, 768, 12))
+# the forward's route past 256 keys (B, Lq, Lk, D, H): a 384×128 input at
+# STRIDE_SIZE 12 (311 tokens), SIM-style cross attention, 1024 keys at hd 64
+# and 128
+LONG_SHAPES = ((192, 311, 311, 768, 12), (128, 3, 384, 512, 8), (16, 1024, 1024, 768, 12),
+               (16, 1024, 1024, 1024, 8))
 BF16_ATOL = 1.6e-2
 BWD_BF16_TOL = dict(atol=8e-3, rtol=1e-2)
 # fp32: the eval forward, a TP 2 rank at STRIDE_SIZE 12's 211 and a
@@ -190,9 +208,8 @@ def time_forward(torch, fns, iters, bad) -> dict:
         qh, kh, vh = (t.view(B, L, H, hd).transpose(1, 2) for t in (q, k, v))
         as_built = fns[next(iter(fns))]
         calls = {"sdpa": lambda: F.scaled_dot_product_attention(qh, kh, vh),
-                 # the design the one-pass kernel replaced at these lengths,
-                 # the first variant's two-pass route
-                 "two_pass": lambda: as_built.attention_fwd(
+                 # the first variant's long route at these lengths
+                 "long_route": lambda: as_built.attention_fwd(
                      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), FWD_ROUTES["long"],
                      B, H, L, L, hd, hd ** -0.5, stream)}
         for name, lib in fns.items():
@@ -211,6 +228,59 @@ def time_forward(torch, fns, iters, bad) -> dict:
         in_turns(torch, calls, row, iters)
         rows[shape] = row
         print(f"[variants] {shape}: " + ", ".join(
+            f"{n} {sum(row[n]) / 2:.4f} ms" for n in calls), flush=True)
+    return rows
+
+
+def time_long(torch, fns, iters, bad) -> dict:
+    """Route 2 of each library beside SDPA at LONG_SHAPES: each held to the
+    plain version and launched twice for the same bits, then timed in
+    turns; a library whose route needs more shared memory than the card
+    allows at a shape is not taken there."""
+    import torch.nn.functional as F
+
+    from signal_tpu_torch.ops.flash_attention import FWD_ROUTES, flash_attention_reference
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for lib in fns.values():
+        lib.attention_fwd.argtypes = [p] * 4 + [i] * 6 + [ctypes.c_float, p]
+        lib.attention_fwd_smem_bytes.argtypes = [i] * 4
+        lib.attention_fwd_smem_bytes.restype = ctypes.c_size_t
+        lib.attention_fwd_smem_limit.argtypes = [i]
+    stream = torch.cuda.current_stream().cuda_stream
+    route = FWD_ROUTES["long"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = {}
+    for B, Lq, Lk, D, H in LONG_SHAPES:
+        q = torch.randn(B, Lq, D, device="cuda", generator=gen).bfloat16()
+        k, v = (torch.randn(B, Lk, D, device="cuda", generator=gen).bfloat16() for _ in "kv")
+        o, again = torch.empty_like(q), torch.empty_like(q)
+        hd = D // H
+        want = flash_attention_reference(q, k, v, H).float()
+        qh = q.view(B, Lq, H, hd).transpose(1, 2)
+        kh, vh = (t.view(B, Lk, H, hd).transpose(1, 2) for t in (k, v))
+        calls = {"sdpa": lambda: F.scaled_dot_product_attention(qh, kh, vh)}
+        row, shape = {}, f"[{B}, {Lq}, {Lk}, {D}]"
+        for name, lib in fns.items():
+            if lib.attention_fwd_smem_bytes(route, Lq, Lk, hd) > lib.attention_fwd_smem_limit(0):
+                row[f"{name}_taken"] = False
+                continue
+            launch = (lambda out, lib=lib: lib.attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), route, B, H, Lq, Lk,
+                hd, hd ** -0.5, stream))
+            if launch(o) != 0 or launch(again) != 0:
+                raise SystemExit(f"{name} {shape}: launch failed")
+            torch.cuda.synchronize()
+            err = (o.float() - want).abs().max().item()
+            row[f"{name}_max_abs_err"] = err
+            row[f"{name}_same_bits"] = bool(torch.equal(o, again))
+            if not (err <= BF16_ATOL and row[f"{name}_same_bits"]):
+                bad.append(f"{name} {shape}: max abs err {err}, same bits "
+                           f"{row[f'{name}_same_bits']}")
+            calls[name] = lambda launch=launch: launch(o)
+        in_turns(torch, calls, row, iters)
+        rows[shape] = row
+        print(f"[variants long] {shape}: " + ", ".join(
             f"{n} {sum(row[n]) / 2:.4f} ms" for n in calls), flush=True)
     return rows
 
@@ -260,29 +330,12 @@ def time_backward(torch, fns, iters, bad) -> dict:
     return rows
 
 
-def attention64(q, k, v, H):
-    """softmax(scale q.k^T).v per head in fp64: the yardstick of the fp32
-    kernels' error (the plain versions compute in fp32)."""
-    qh, kh, vh = (t.double().unflatten(-1, (H, -1)).transpose(1, 2) for t in (q, k, v))
-    p = ((qh @ kh.transpose(-1, -2)) * qh.shape[-1] ** -0.5).softmax(-1)
-    return (p @ vh).transpose(1, 2).flatten(2)
-
-
-def attention_bwd64(q, k, v, g, H):
-    """(dq, dk, dv) of :func:`attention64` at output gradient g, in fp64."""
-    qh, kh, vh, gh = (t.double().unflatten(-1, (H, -1)).transpose(1, 2) for t in (q, k, v, g))
-    scale = qh.shape[-1] ** -0.5
-    p = ((qh @ kh.transpose(-1, -2)) * scale).softmax(-1)
-    dp = gh @ vh.transpose(-1, -2)
-    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
-    out = ((ds @ kh) * scale, (ds.transpose(-1, -2) @ qh) * scale, p.transpose(-1, -2) @ gh)
-    return tuple(t.transpose(1, 2).flatten(2) for t in out)
-
-
 def fp64_errors(torch, fwd, bwd) -> dict:
     """Every output's max abs error against fp64 at FP64_FWD_SHAPES and
     FP64_BWD_SHAPES, each library's and the plain fp32 version's."""
     from signal_tpu_torch.ops.flash_attention import (
+        attention64,
+        attention_bwd64,
         flash_attention_bwd_reference,
         flash_attention_reference,
     )
@@ -525,9 +578,11 @@ def main() -> int:
                     help="the variants' JSON (default scripts/attention_{fwd,bwd}_variants.json)")
     ap.add_argument("--bwd", action="store_true", help="the backward's fused route")
     ap.add_argument("--fp32", action="store_true", help="the fp32 routes of both kernels")
+    ap.add_argument("--long", action="store_true",
+                    help="the bf16 forward's route past 256 keys")
     ap.add_argument("--baseline", type=Path, action="append", default=[],
-                    help="with --bwd or --fp32: a tree whose kernels are timed beside the "
-                         "variants (--fp32: repeatable)")
+                    help="with --bwd, --long or --fp32: a tree whose kernels are timed "
+                         "beside the variants (--fp32: repeatable)")
     ap.add_argument("--steps", action="store_true",
                     help="with --fp32: the fp32 flagship eval forward and train step too")
     ap.add_argument("--tests", action="store_true",
@@ -541,8 +596,9 @@ def main() -> int:
         print("no CUDA device: this script measures the card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    tag = "fp32" if args.fp32 else "bwd" if args.bwd else "fwd"
-    path = args.variants or str(REPO / f"scripts/attention_{tag}_variants.json")
+    tag = "fp32" if args.fp32 else "bwd" if args.bwd else "long" if args.long else "fwd"
+    default = "fwd_long" if args.long else tag
+    path = args.variants or str(REPO / f"scripts/attention_{default}_variants.json")
     variants = json.loads(Path(path).read_text())
     bad = []
     baselines = {tree.name: tree for tree in args.baseline}
@@ -557,13 +613,15 @@ def main() -> int:
         ptx = {name: {**ptxas(libs[name][1], kernel), **ptxas(libs_bwd[name][1], kernel)}
                for name in libs}
     else:
-        if len(baselines) > 1 or baselines and not args.bwd:
-            raise SystemExit("--baseline: once, and with --bwd or --fp32 only")
-        libs = build(variants, f"attention_{tag}", {"baseline": args.baseline[0]}
-                     if baselines else None)
+        if len(baselines) > 1 or baselines and not (args.bwd or args.long):
+            raise SystemExit("--baseline: once, and with --bwd, --long or --fp32 only")
+        libs = build(variants, "attention_bwd" if args.bwd else "attention_fwd",
+                     {"baseline": args.baseline[0]} if baselines else None)
         fns = {name: ctypes.CDLL(str(lib)) for name, (lib, _) in libs.items()}
-        rows = (time_backward if args.bwd else time_forward)(torch, fns, args.iters, bad)
-        kernel = "fused_kernel" if args.bwd else "onepass_kernel"
+        timer = time_backward if args.bwd else time_long if args.long else time_forward
+        rows = timer(torch, fns, args.iters, bad)
+        kernel = ("fused_kernel" if args.bwd else "fwd_long_kernel" if args.long
+                  else "onepass_kernel")
         ptx = {name: ptxas(log, kernel) for name, (_, log) in libs.items()}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()

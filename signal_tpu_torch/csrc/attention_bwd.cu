@@ -471,7 +471,7 @@ int launch_tf32_kernel(Kernel kernel, int HN, int split, int heads, int tiles,
   int device = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
-    err = tf32::configure_once(reinterpret_cast<const void*>(kernel), device, &limit);
+    err = tma::configure_once(reinterpret_cast<const void*>(kernel), device, &limit);
   if (err != cudaSuccess) return (int)err;
   const tf32::Grid grid = tf32::grid_for(device, heads, tiles, kFp32Warps);
   const size_t smem = fp32_smem_bytes(HN, grid.warps);
@@ -568,15 +568,6 @@ size_t fused_smem_bytes(int Lq, int Lk, int hd) {
                           ? (wide ? FusedLayout<17, 16>::kBytes : FusedLayout<17, 8>::kBytes)
                           : (wide ? FusedLayout<20, 16>::kBytes : FusedLayout<20, 8>::kBytes);
   return 1024 + body;
-}
-
-// 2^x on the SFU (ex2.approx, 2 ulp, as exp2f), results below 2^-126
-// flushed to zero: exp2f's extra instructions for those cost the fused
-// kernel about 2 %, and a P under 1e-38 is no term of any bf16 output
-__device__ __forceinline__ float ex2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // logits of a fragment in base 2: s * scale * log2(e), rounded on its own

@@ -1,4 +1,4 @@
-// Fused multi-head attention forward for short sequences, sm_90a.
+// Fused multi-head attention forward, sm_90a.
 //
 // Replaces the TPU kernel `_attn_kernel` (signal_tpu/ops/flash_attention.py,
 // reached through `_fused_attention_fwd_impl`) and computes what it
@@ -69,14 +69,52 @@
 // Sums are taken in one fixed order with no atomics: two launches on the
 // same inputs give the same bits.
 //
-// Past 256 keys (cross attention, no shipped shape): the two-pass
-// `attention_fwd_mma_kernel`. One block owns one (batch row, head, up to
-// kMmaWarps 16-row query tiles) and stages its Q rows and the head's K
-// and V with cp.async (rows padded so that ldmatrix is free of bank
-// conflicts). A warp holds at most 144 keys of logits in registers, so it
-// sweeps the keys twice: the first pass finds each row's max and sum e
-// over the key chunks, the second recomputes the logits, forms the exact
-// normalised P and accumulates P.V.
+// Past 256 keys (a 384x128 input at STRIDE_SIZE 12: 311 tokens; cross
+// attention): `attention_fwd_long_kernel<SL, ST, MIN_BLOCKS>`, at any
+// length. A row of logits no longer fits a warp's registers, and at 1024
+// keys a head's K and V (256 KB at hd 64) no longer fit an SM's shared
+// memory, so K and V stream through a ring of ST chunks of 64 keys by TMA,
+// one producer warp keeping the copies ahead of the math, and the keys are
+// swept twice: the first sweep finds each row's max and sum of e (rescaled
+// as the max grows, in fp32), the second forms the same logits again, the
+// exact normalised P = e . (1 / sum e) rounded to bf16 once, and O =
+// round(P).V. So the TPU kernel's rounding point holds, at the cost of a
+// third product (Q.K^T twice) and a second exponential per logit: an online
+// softmax that rounds e before it knows the sum would save both but moves
+// the rounding point. At [192, 311, 768] it does 57 GFLOP of the two
+// products (86 with the recomputed one) against 367 MB: about 155 FLOP a
+// byte, under the ~295 FLOP/B ridge, so device memory bounds it (0.1095
+// ms); what holds it above that is the work on chip. The design, each
+// choice measured on the card (scripts/variants_torch_attention.py --long,
+// PERF.md §6):
+//   - the products are warpgroup products (wgmma): a block's four consumer
+//     warps take 64 query rows of one head, S = Q.K^T of a chunk is one
+//     m64n64k16 product per 16 columns of hd with Q and K read from shared
+//     memory in TMA's swizzle, and O += round(P).V one m64n64k16 product per
+//     16 keys and 64 columns with P from registers (the accumulator layout
+//     of S is the A layout of the next product). Against mma.sync with a
+//     warp a 16-row tile (its K and V fragments through ldmatrix) it took
+//     0.32 ms against 0.41 at [192, 311, 768]; two tiles a mma.sync warp
+//     ran slower still (registers cost a block an SM). Each product is
+//     waited for before the softmax that reads it: issuing the next
+//     chunk's before this chunk's softmax (two sets of accumulators)
+//     spilled at four blocks an SM, and without spills (hd 128, two
+//     blocks) ran 1.4x slower;
+//   - the consumer warps release each stage on an mbarrier once read, so a
+//     block's copies run ahead under its math; a head's 64-row groups are
+//     separate blocks, each streaming K twice and V once, from L2 after the
+//     first; as many blocks an SM as the registers allow (four at hd <= 64,
+//     three past it) with the stages that still fit: at [192, 311, 768]
+//     four blocks of four stages took 0.28 ms, three of six 0.31;
+//   - exponentials on the SFU with denormal results flushed
+//     (ex2.approx.ftz: exp2f's extra instructions cost 6 to 10 % at 311
+//     and 1024 keys), of one fused multiply-add of the dot, scale log2(e)
+//     and the row's max in base 2 (the product rounded on its own before
+//     the subtraction took 1 to 2 % more); the keys past Lk masked by
+//     selects in the last chunk only (in every chunk: 5 % more at 1024
+//     keys).
+// Sums are taken in one fixed order with no atomics: two launches on the
+// same inputs give the same bits.
 //
 // fp32 (MODEL.COMPUTE_DTYPE float32): `attention_fwd_fp32_kernel`, a
 // register-tiled kernel on the CUDA cores, exact to fp32. It forms every
@@ -377,7 +415,7 @@ int launch_fp32_hs(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorM
   int device = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
-    err = tf32::configure_once(reinterpret_cast<const void*>(kernel), device, &limit);
+    err = tma::configure_once(reinterpret_cast<const void*>(kernel), device, &limit);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (Lq + tf32::kRows - 1) / tf32::kRows;
   tf32::Grid grid = tf32::grid_for(device, B * H, tiles, kFp32Warps);
@@ -406,141 +444,9 @@ int launch_fp32(const void* q, const void* k, const void* v, void* o, int B, int
   return launch_fp32_hs<4, 2>(qm, km, vm, o, B, H, Lq, Lk, hd, scale, stream);
 }
 
-// ---- bf16: the tensor-core kernel ----------------------------------------
+// ---- bf16: the tensor-core kernels ------------------------------------
 
 using mma::bf16;
-
-// 16-row query tiles per block, at most: the 9 tiles of L = 129 take 3
-// blocks, and 4 blocks (12 warps) fill an SM's registers
-constexpr int kMmaWarps = 3;
-constexpr int kMmaBlocksPerSM = 4;
-constexpr int kRowTiles = 18;   // key n-tiles of 8 in a register row: 144 keys
-
-// query tiles per block: Lq's tiles split evenly over the fewest blocks
-int mma_warps(int Lq) {
-  const int tiles = mma::round16(Lq) / 16;
-  const int blocks = (tiles + kMmaWarps - 1) / kMmaWarps;
-  return (tiles + blocks - 1) / blocks;
-}
-
-// Shared memory (dynamic), in this order, each row padded(hd) long:
-//   Qs [16 mma_warps(Lq)], Ks [round16(Lk)], Vs [round16(Lk)]
-size_t mma_smem_bytes(int Lq, int Lk, int hd) {
-  return (size_t)(16 * mma_warps(Lq) + 2 * mma::round16(Lk)) * mma::padded(hd) * sizeof(bf16);
-}
-
-// O tile = round(P) . V for one chunk of keys (key0 .. key0 + 8 NT) and
-// output columns c0 .. c0 + kColTile: P = e / l with e = s if `exps`, else
-// exp(s - m), the normalised fp32 probabilities, rounded to bf16 straight
-// into A fragments. rl = 1 / l: a product with the reciprocal differs from
-// the quotient by at most one fp32 ulp, and spares an IEEE divide (a long
-// instruction sequence) per probability
-template <int NT>
-__device__ __forceinline__ void pv(float (&acc)[mma::kColTile / 8][4], const float (&s)[NT][4],
-                                   const float (&m)[2], const float (&rl)[2], const bf16* Vs,
-                                   int so, int key0, int LKP, int c0, int HDP, bool exps,
-                                   int lane) {
-  using namespace mma;
-#pragma unroll
-  for (int kp = 0; kp < NT / 2; ++kp) {
-    if (key0 + kp * 16 >= LKP) continue;
-    float p[2][4];
-#pragma unroll
-    for (int t = 0; t < 2; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        p[t][e] = (exps ? s[2 * kp + t][e] : expf(s[2 * kp + t][e] - m[e >> 1])) * rl[e >> 1];
-    const uint32_t a[4] = {pack(p[0][0], p[0][1]), pack(p[0][2], p[0][3]),
-                           pack(p[1][0], p[1][1]), pack(p[1][2], p[1][3])};
-    dot_cols(acc, a, Vs, so, key0 + kp * 16, c0, HDP, lane);
-  }
-}
-
-__global__ void __launch_bounds__(kMmaWarps * 32, kMmaBlocksPerSM)
-attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ o,
-                         int H, int Lq, int Lk, int hd, float scale) {
-  using namespace mma;
-  constexpr int NT = kRowTiles;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int rows = blockDim.x / 2;     // 16 query rows per warp
-  const int LKP = round16(Lk);
-  const int HDP = round16(hd);
-  const int so = padded(hd);
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + rows * so;
-  bf16* Vs = Ks + LKP * so;
-
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x - b * H;
-  const int D = H * hd;
-  const int row0 = blockIdx.y * rows;
-  const size_t qoff = ((size_t)b * Lq + row0) * D + (size_t)h * hd;
-  const size_t koff = (size_t)b * Lk * D + (size_t)h * hd;
-  stage_async(Qs, q + qoff, Lq - row0, rows, hd, D);
-  stage_async(Ks, k + koff, Lk, LKP, hd, D);
-  stage_async(Vs, v + koff, Lk, LKP, hd, D);
-  cp_async_wait_all();
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * 16;
-  if (row0 + r0 >= Lq) return;
-
-  // pass 1: each row's max m and sum l of e = exp(logit - m), over key
-  // chunks of 8 NT; at Lk <= 8 NT one chunk, and l is exactly that sum
-  const int chunk = NT * 8;
-  const int chunks = (LKP + chunk - 1) / chunk;
-  float s[NT][4];
-  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  float l[2] = {0.f, 0.f};
-  for (int c = 0; c < chunks; ++c) {
-    const int key0 = c * chunk;
-    dot_nt(s, Qs, Ks, so, r0, key0, LKP, HDP, lane);
-    scale_mask(s, key0, Lk, scale, lane);
-    float cm[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      if (key0 + j * 8 >= LKP) continue;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) cm[e >> 1] = fmaxf(cm[e >> 1], s[j][e]);
-    }
-    float nm[2], cs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) nm[i] = fmaxf(m[i], quad_max(cm[i]));
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      if (key0 + j * 8 >= LKP) continue;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = expf(s[j][e] - nm[e >> 1]);
-        cs[e >> 1] += x;
-        if (chunks == 1) s[j][e] = x;  // pass 2 reuses e
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      l[i] = l[i] * expf(m[i] - nm[i]) + quad_sum(cs[i]);
-      m[i] = nm[i];
-    }
-  }
-
-  // pass 2: O = round(P) . V by output tiles of kColTile columns; with
-  // more than one chunk the logits are recomputed (exactly: the same dots)
-  const float rl[2] = {1.f / l[0], 1.f / l[1]};
-  for (int c0 = 0; c0 < HDP; c0 += kColTile) {
-    float acc[kColTile / 8][4] = {};
-    for (int c = 0; c < chunks; ++c) {
-      const int key0 = c * chunk;
-      if (chunks > 1) {
-        dot_nt(s, Qs, Ks, so, r0, key0, LKP, HDP, lane);
-        scale_mask(s, key0, Lk, scale, lane);
-      }
-      pv(acc, s, m, rl, Vs, so, key0, LKP, c0, HDP, chunks == 1, lane);
-    }
-    store_tile(o + qoff + c0, D, r0, Lq - row0, hd - c0, acc, 1.f, lane);
-  }
-}
 
 // ---- bf16 up to 256 keys: one pass, operands by TMA ------------------------
 
@@ -810,6 +716,8 @@ template <int NT, int MIN_BLOCKS>
 int launch_one_pass_nt(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
                        void* o, int B, int H, int Lq, int Lk, int hd, float scale,
                        OnePassShape shape, cudaStream_t stream) {
+  // not tma::configure_once: this kernel needs the carveout set too, which
+  // that helper leaves to the driver
   auto kernel = attention_fwd_onepass_kernel<NT, MIN_BLOCKS>;
   const size_t smem = one_pass_smem_bytes(hd, NT, shape.warps);
   cudaError_t err =
@@ -873,19 +781,323 @@ int launch_one_pass(const void* q, const void* k, const void* v, void* o, int B,
   }
 }
 
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq,
-               int Lk, int hd, float scale, cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes(Lq, Lk, hd);
-  const cudaError_t err = cudaFuncSetAttribute(attention_fwd_mma_kernel,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem);
+// ---- bf16 past 256 keys: two sweeps over keys streamed by TMA --------------
+
+constexpr int kLongKeys = 64;  // keys of a chunk of K or V: one box of 64 rows a slab
+constexpr int kLongWarps = 4;  // consumer warps a block: one warpgroup, 64 query rows
+
+// Shared memory of a block at SL slabs of 64 columns of the head dim and ST
+// stages of the ring (dynamic, 1024-aligned by hand): the ring
+// [ST][SL][kLongKeys][64], the query rows [SL][64][64], then the barriers:
+// full and empty a stage, Q's.
+size_t long_smem_bytes(int SL, int ST) {
+  return 1024 + (size_t)tma::kSlab * sizeof(bf16) * SL * (ST * kLongKeys + kLongWarps * kTileRows) +
+         sizeof(uint64_t) * (2 * ST + 1);
+}
+
+// ---- warpgroup products (wgmma) ---------------------------------------------
+
+namespace wg {
+
+// A shared-memory matrix descriptor of a tile in the 128-byte swizzle (TMA's
+// layout, 1024-aligned atoms of 8 rows of 128 bytes): start address,
+// leading and stride byte offsets, layout 1 = 128B swizzle
+__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((tma::saddr(p) & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving reads or writes of accumulators across the
+// asynchronous product
+__device__ __forceinline__ void fence_regs(float (&d)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+
+// d (+)= A.B for a warpgroup: m64n64k16, bf16 in, fp32 accumulators (per
+// warp the m16n8 layout of mma.sync, 8 n-tiles), A and B both from shared
+// memory, K-major; scale_d 0 overwrites d
+__device__ __forceinline__ void mma_ss(float (&d)[8][4], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d += A.B, m64n64k16: A from registers (per warp the m16n8k16 A fragment
+// of mma.sync), B from shared memory, MN-major (transposed)
+__device__ __forceinline__ void mma_rs(float (&d)[8][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+}  // namespace wg
+
+// A warp's dots of its 16 rows and a chunk of keys (key0 ..), the keys at
+// or past Lk at -inf: the last chunk's selects; a whole chunk takes none
+__device__ __forceinline__ void mask_chunk(float (&s)[kLongKeys / 8][4], int key0, int Lk,
+                                           int lane) {
+  if (key0 + kLongKeys <= Lk) return;
+  const int lim = Lk - key0 - 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < kLongKeys / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = j * 8 + (e & 1) < lim ? s[j][e] : -CUDART_INF_F;
+}
+
+// One block per (head, 64 query rows): four consumer warps, one warpgroup,
+// a warp the 16-row tile it holds in the products' accumulators, and a
+// producer warp. One lane of the producer issues the block's query rows,
+// then the chunks in the order the consumers take them, K's chunks 0 .. n
+// - 1 (the statistics), then K's and V's chunk c in turn, each into the
+// next stage of the ring once every consumer warp has released it.
+template <int SL, int ST, int MIN_BLOCKS>
+__global__ void __launch_bounds__((kLongWarps + 1) * 32, MIN_BLOCKS)
+attention_fwd_long_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o, int H,
+                          int Lq, int Lk, int hd, float scale, int groups) {
+  using namespace mma;
+  constexpr int NC = kLongKeys / 8;                            // key n-tiles of a chunk
+  constexpr int c_slab = kLongKeys * tma::kSlab;               // elements of a chunk's slab
+  constexpr int q_slab = kLongWarps * kTileRows * tma::kSlab;  // of a slab of the 64 rows
+  extern __shared__ unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw + ((1024 - (tma::saddr(smem_raw) & 1023)) & 1023));
+  bf16* Qs = ring + ST * SL * c_slab;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Qs + SL * q_slab);
+  uint64_t* empty = full + ST;
+  uint64_t* qbar = empty + ST;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int head = blockIdx.x / groups;
+  const int grp = blockIdx.x - head * groups;
+  const int b = head / H, h = head - b * H;
+  const int tiles = round16(Lq) / kTileRows;
+  const int tile0 = grp * kLongWarps;                // the block's first query tile
+  const int mine = min(kLongWarps, tiles - tile0);   // its tiles; the other slots are zero
+  const int n = (Lk + kLongKeys - 1) / kLongKeys;    // chunks of keys
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ST; ++i) {
+      tma::mbar_init(full + i, 1);
+      tma::mbar_init(empty + i, kLongWarps);
+    }
+    tma::mbar_init(qbar, 1);
+    tma::fence_barrier_init();
+  }
+  // the query rows past the block's tiles, which no copy writes, to zero
+  // (the products read them through the async proxy)
+  const int per = (kLongWarps - mine) * kTileRows * tma::kSlab / 8;  // 16-byte units a slab
+  for (int i = threadIdx.x; i < SL * per; i += blockDim.x) {
+    const int sl = i / per;
+    reinterpret_cast<uint4*>(Qs + sl * q_slab + mine * kTileRows * tma::kSlab)[i - sl * per] =
+        make_uint4(0, 0, 0, 0);
+  }
+  tma::fence_proxy_async();
+  __syncthreads();
+
+  if (warp == kLongWarps) {
+    if (lane == 0) {
+      tma::mbar_expect_tx(qbar, (uint32_t)(mine * SL * kTileRows * tma::kSlab * sizeof(bf16)));
+      for (int t = 0; t < mine; ++t)
+        for (int sl = 0; sl < SL; ++sl)
+          tma::load_4d(Qs + sl * q_slab + t * kTileRows * tma::kSlab, &qmap, qbar,
+                       sl * tma::kSlab, h, (tile0 + t) * kTileRows, b);
+      for (int t = 0; t < 3 * n; ++t) {
+        const int st = t % ST;
+        if (t >= ST) {
+          tma::mbar_wait(empty + st, (t / ST - 1) & 1);
+          tma::fence_proxy_async();
+        }
+        const bool is_v = t >= n && ((t - n) & 1);
+        const int c = t < n ? t : (t - n) >> 1;
+        tma::mbar_expect_tx(full + st, (uint32_t)(SL * c_slab * sizeof(bf16)));
+        for (int sl = 0; sl < SL; ++sl)
+          tma::load_4d(ring + (st * SL + sl) * c_slab, is_v ? &vmap : &kmap, full + st,
+                       sl * tma::kSlab, h, c * kLongKeys, b);
+      }
+    }
+    return;
+  }
+
+  const float sl2 = scale * 1.4426950408889634f;
+  // S = Q.K^T of the 64 rows against the chunk in stage st (this warp's 16
+  // rows in s), one m64n64k16 product per 16 columns of hd, Q and K both
+  // K-major in the 128-byte swizzle (a k-step is 32 bytes into the atom);
+  // then the stage is released
+  auto logits = [&](float (&s)[NC][4], int st) {
+    const bf16* C = ring + st * SL * c_slab;
+    wg::fence_regs(s);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < SL * 4; ++kk) {
+      const int off = (kk & 3) * 16;
+      wg::mma_ss(s, wg::desc(Qs + (kk >> 2) * q_slab + off, 16, 1024),
+                 wg::desc(C + (kk >> 2) * c_slab + off, 16, 1024), kk > 0);
+    }
+    wg::commit();
+    wg::wait_all();
+    wg::fence_regs(s);
+    __syncwarp();
+    if (lane == 0) tma::mbar_arrive(empty + st);
+  };
+
+  // sweep 1: each row's max m of the logits in base 2 (the max of the dots
+  // times sl2: rounding keeps the order) and sum l of e = 2^(dot . sl2 -
+  // m) over the chunks, l rescaled when m grows; a lane sums its own keys,
+  // the quad at the end. The exponent is one fused multiply-add of the
+  // dot, sl2 and m, the same instruction in both sweeps, so that both see
+  // the same values
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  tma::mbar_wait(qbar, 0);
+  for (int c = 0; c < n; ++c) {
+    const int st = c % ST;
+    tma::mbar_wait(full + st, (c / ST) & 1);
+    float s[NC][4];
+    logits(s, st);
+    mask_chunk(s, c * kLongKeys, Lk, lane);
+    float cm[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cm[e >> 1] = fmaxf(cm[e >> 1], s[j][e]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float mn = fmaxf(m[i], __fmul_rn(quad_max(cm[i]), sl2));
+      l[i] *= ex2_ftz(m[i] - mn);  // 0 . 0 on the first chunk
+      m[i] = mn;
+    }
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) l[e >> 1] += ex2_ftz(fmaf(s[j][e], sl2, -m[e >> 1]));
+  }
+  const float rl[2] = {1.f / quad_sum(l[0]), 1.f / quad_sum(l[1])};
+
+  // sweep 2: S again (the same products, the same bits), P = 2^(dot . sl2 -
+  // m) . (1 / l) in fp32 rounded to bf16 once into A fragments (the TPU kernel's
+  // rounding point; the accumulator layout of S is the A layout of the next
+  // product), O += round(P).V: one m64n64k16 product per 16 keys and 64
+  // columns, P from registers, V MN-major (transposed) from the ring
+  float acc[SL][8][4];
+#pragma unroll
+  for (int sl = 0; sl < SL; ++sl)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[sl][j][e] = 0.f;
+  for (int c = 0; c < n; ++c) {
+    const int tk = n + 2 * c, sk = tk % ST;
+    tma::mbar_wait(full + sk, (tk / ST) & 1);
+    float s[NC][4];
+    logits(s, sk);
+    mask_chunk(s, c * kLongKeys, Lk, lane);
+    uint32_t p[NC / 2][4];
+    auto prob = [&](float x, int i) { return ex2_ftz(fmaf(x, sl2, -m[i])) * rl[i]; };
+#pragma unroll
+    for (int kp = 0; kp < NC / 2; ++kp) {
+      p[kp][0] = pack(prob(s[2 * kp][0], 0), prob(s[2 * kp][1], 0));
+      p[kp][1] = pack(prob(s[2 * kp][2], 1), prob(s[2 * kp][3], 1));
+      p[kp][2] = pack(prob(s[2 * kp + 1][0], 0), prob(s[2 * kp + 1][1], 0));
+      p[kp][3] = pack(prob(s[2 * kp + 1][2], 1), prob(s[2 * kp + 1][3], 1));
+    }
+    const int tv = tk + 1, sv = tv % ST;
+    tma::mbar_wait(full + sv, (tv / ST) & 1);
+    const bf16* V = ring + sv * SL * c_slab;
+#pragma unroll
+    for (int sl = 0; sl < SL; ++sl) wg::fence_regs(acc[sl]);
+    wg::fence();
+#pragma unroll
+    for (int kp = 0; kp < NC / 2; ++kp)
+#pragma unroll
+      for (int sl = 0; sl < SL; ++sl)
+        wg::mma_rs(acc[sl], p[kp],
+                   wg::desc(V + sl * c_slab + kp * 16 * tma::kSlab, c_slab * 2, 1024));
+    wg::commit();
+    wg::wait_all();
+#pragma unroll
+    for (int sl = 0; sl < SL; ++sl) wg::fence_regs(acc[sl]);
+    __syncwarp();
+    if (lane == 0) tma::mbar_arrive(empty + sv);
+  }
+  const int tile = tile0 + warp;
+  if (tile < tiles) {
+    const int D = H * hd;
+    bf16* dst = o + ((size_t)b * Lq + tile * kTileRows) * D + (size_t)h * hd;
+#pragma unroll
+    for (int sl = 0; sl < SL; ++sl)
+      store_tile(dst + sl * tma::kSlab, D, 0, Lq - tile * kTileRows, hd - sl * tma::kSlab,
+                 acc[sl], 1.f, lane);
+  }
+}
+
+template <int SL, int ST, int MIN_BLOCKS>
+int launch_long_inst(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, void* o,
+                     int B, int H, int Lq, int Lk, int hd, float scale, cudaStream_t stream) {
+  auto kernel = attention_fwd_long_kernel<SL, ST, MIN_BLOCKS>;
+  int device = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = tma::configure_once(reinterpret_cast<const void*>(kernel), device, &limit);
   if (err != cudaSuccess) return (int)err;
-  const int warps = mma_warps(Lq);
-  const dim3 grid((unsigned)(B * H), (unsigned)((mma::round16(Lq) / 16 + warps - 1) / warps));
-  attention_fwd_mma_kernel<<<grid, warps * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), H, Lq, Lk, hd, scale);
+  const int groups = (mma::round16(Lq) / kTileRows + kLongWarps - 1) / kLongWarps;
+  kernel<<<(unsigned)(groups * B * H), (kLongWarps + 1) * 32, long_smem_bytes(SL, ST), stream>>>(
+      qm, km, vm, static_cast<bf16*>(o), H, Lq, Lk, hd, scale, groups);
   return (int)cudaGetLastError();
+}
+
+// hd <= 64: four stages, four blocks an SM; past it three stages, three
+// blocks (the blocks an SM that the registers allow, with the stages that
+// still fit their shared memory)
+int launch_long(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq,
+                int Lk, int hd, float scale, cudaStream_t stream) {
+  if (hd > 128) return (int)cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm;
+  int err = tma::encode_heads(&qm, q, B, Lq, H, hd, kTileRows);
+  if (!err) err = tma::encode_heads(&km, k, B, Lk, H, hd, kLongKeys);
+  if (!err) err = tma::encode_heads(&vm, v, B, Lk, H, hd, kLongKeys);
+  if (err) return err;
+  if (hd > tma::kSlab)
+    return launch_long_inst<2, 3, 3>(qm, km, vm, o, B, H, Lq, Lk, hd, scale, stream);
+  return launch_long_inst<1, 4, 4>(qm, km, vm, o, B, H, Lq, Lk, hd, scale, stream);
 }
 
 }  // namespace
@@ -894,15 +1106,17 @@ extern "C" {
 
 // The routes of a launch, chosen by the caller: 0 fp32 (CUDA cores, up to
 // the keys whose logit rows fit one warp's block), 1 bf16 up to
-// kOnePassMaxKeys keys (one pass, TMA), 2 bf16 at any length (the two-pass
-// kernel, for more keys).
+// kOnePassMaxKeys keys (one pass, TMA), 2 bf16 at any length (two sweeps
+// over keys streamed by TMA, for more keys).
 int attention_fwd_one_pass_max_keys() { return kOnePassMaxKeys; }
 
 // Shared memory one launch of `route` needs, in bytes (fp32: a block of one
 // warp, the least it shrinks to).
 size_t attention_fwd_smem_bytes(int route, int Lq, int Lk, int hd) {
   if (route == 1) return one_pass_smem_bytes(hd, one_pass_nt(Lk), kMaxWarps);
-  return route == 2 ? mma_smem_bytes(Lq, Lk, hd) : fp32_smem_bytes(hd <= 64 ? 2 : 4, 1, Lk);
+  if (route == 2)  // the same at any length
+    return hd <= tma::kSlab ? long_smem_bytes(1, 4) : long_smem_bytes(2, 3);
+  return fp32_smem_bytes(hd <= 64 ? 2 : 4, 1, Lk);
 }
 
 // Largest dynamic shared memory a block may opt into on `device`.
@@ -919,10 +1133,7 @@ int attention_fwd(const void* q, const void* k, const void* v, void* o, int rout
                   int B, int H, int Lq, int Lk, int hd, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 1) return launch_one_pass(q, k, v, o, B, H, Lq, Lk, hd, scale, s);
-  if (route == 2) {
-    if (hd > 128) return (int)cudaErrorInvalidValue;
-    return launch_mma(q, k, v, o, B, H, Lq, Lk, hd, scale, s);
-  }
+  if (route == 2) return launch_long(q, k, v, o, B, H, Lq, Lk, hd, scale, s);
   return launch_fp32(q, k, v, o, B, H, Lq, Lk, hd, scale, s);
 }
 

@@ -44,10 +44,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) 
                "l"(src), "r"(ok ? 16 : 0));
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
 // A ring of stages: close the thread's pending copies into a group, then
 // wait until at most N groups are still in flight.
 __device__ __forceinline__ void cp_async_commit() {
@@ -61,7 +57,7 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Stage rows [0, LP) of a head's column block (hd wide, row stride D in
 // src) into dst, row stride padded(hd); rows >= L and columns >= hd are
-// zero. cp_async_wait_all() and __syncthreads() before use.
+// zero. cp_async_commit(), cp_async_wait<0>() and __syncthreads() before use.
 __device__ __forceinline__ void stage_async(bf16* dst, const bf16* src, int L, int LP, int hd, int D) {
   const int per_row = round16(hd) / 8;
   const int stride = padded(hd);
@@ -131,6 +127,16 @@ __device__ __forceinline__ const bf16* b_cols(const bf16* t, int stride, int k0,
   return t + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * stride + n0 + (lane >> 4) * 8;
 }
 
+// 2^x on the SFU (ex2.approx, 2 ulp, as exp2f), results below 2^-126
+// flushed to zero: exp2f's extra instructions for those cost the
+// backward's fused kernel about 2 % and the forward's long route about 6 %,
+// and a P under 1e-38 is no term of any bf16 output
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // reductions over the 4 lanes (tq) that hold one accumulator row
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -146,34 +152,9 @@ __device__ __forceinline__ float quad_sum(float v) {
 // thread, whatever the head dim.
 constexpr int kColTile = 64;
 
-// acc = A[m0 .. m0+15][0, kdim) . B[n0 .. n0 + 8 NT)[0, kdim)^T, fp32, for
-// the n-tiles below row nend of B (the others are left untouched); A and B
-// are staged tiles with row stride `stride`, kdim a multiple of 16.
-template <int NT>
-__device__ __forceinline__ void dot_nt(float (&acc)[NT][4], const bf16* A, const bf16* B,
-                                       int stride, int m0, int n0, int nend, int kdim,
-                                       int lane) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll 1  // unrolled, its loads would be hoisted into spilled registers
-  for (int kc = 0; kc < kdim; kc += 16) {
-    uint32_t a[4];
-    ldsm_x4(a, a_rows(A, stride, m0, kc, lane));
-#pragma unroll
-    for (int jp = 0; jp < NT / 2; ++jp) {
-      if (n0 + jp * 16 >= nend) continue;
-      uint32_t b[4];
-      ldsm_x4(b, b_rows(B, stride, n0 + jp * 16, kc, lane));
-      mma16816(acc[2 * jp], a, b[0], b[1]);
-      mma16816(acc[2 * jp + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc = A.B^T and acc2 = A2.B2^T for the n-tiles from 0 below row nend
-// of B and B2: dot_nt twice, in one pass over the contraction (two passes
+// acc = A[m0 .. m0+15].B^T and acc2 = A2[m0 ..].B2^T (A, B staged tiles
+// with row stride `stride`, kdim a multiple of 16) for the n-tiles from 0
+// below row nend of B and B2, in one pass over the contraction (two passes
 // keep more registers live, and the backward's S and dP then spill)
 template <int NT>
 __device__ __forceinline__ void dot_nt2(float (&acc)[NT][4], float (&acc2)[NT][4], const bf16* A,
@@ -202,41 +183,9 @@ __device__ __forceinline__ void dot_nt2(float (&acc)[NT][4], float (&acc2)[NT][4
   }
 }
 
-// logits: s * scale (after the dot, as the TPU kernels), key columns
-// >= Lk set to -inf; s holds keys key0 .. key0 + 8 NT, LKP = round16(Lk)
-template <int NT>
-__device__ __forceinline__ void scale_mask(float (&s)[NT][4], int key0, int Lk, float scale,
-                                           int lane) {
-  const int LKP = round16(Lk);
-  const int tq = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    if (key0 + j * 8 >= LKP) continue;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = key0 + j * 8 + 2 * tq + (e & 1);
-      s[j][e] = col < Lk ? s[j][e] * scale : -CUDART_INF_F;
-    }
-  }
-}
-
-// acc[0 .. 8) += A . B[k0 .. k0 + 16)[c0 .. c0 + kColTile) for one k-step:
-// A a 16x16 fragment, B staged [k][n] (row stride `stride`, n < ncols)
-__device__ __forceinline__ void dot_cols(float (&acc)[kColTile / 8][4], const uint32_t (&a)[4],
-                                         const bf16* B, int stride, int k0, int c0, int ncols,
-                                         int lane) {
-#pragma unroll
-  for (int np = 0; np < kColTile / 16; ++np) {
-    if (c0 + np * 16 >= ncols) continue;
-    uint32_t b[4];
-    ldsm_x4_t(b, b_cols(B, stride, k0, c0 + np * 16, lane));
-    mma16816(acc[2 * np], a, b[0], b[1]);
-    mma16816(acc[2 * np + 1], a, b[2], b[3]);
-  }
-}
-
-// dot_cols over the whole head at once: acc[0 .. NT) += A . B[k0 .. k0 +
-// 16)[0 .. 8 NT), n-tiles at or past ncols left untouched
+// acc[0 .. NT) += A . B[k0 .. k0 + 16)[0 .. 8 NT) for one k-step: A a 16x16
+// fragment, B staged [k][n] (row stride `stride`), n-tiles at or past ncols
+// left untouched
 template <int NT>
 __device__ __forceinline__ void dot_cols_all(float (&acc)[NT][4], const uint32_t (&a)[4],
                                              const bf16* B, int stride, int k0, int ncols,

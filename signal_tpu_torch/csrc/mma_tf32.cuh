@@ -2,8 +2,8 @@
 // (attention_bwd.cu), sm_90a: fp32-accurate products on the TF32 tensor
 // cores ("3xTF32", the split of CUTLASS's OpMultiplyAddFastF32, which
 // PyTorch's fp32 memory-efficient attention uses on sm80+), on fp32 tiles
-// that TMA writes in the 128-byte swizzle; and the launch helpers both fp32
-// kernels share (grid_for, configure_once).
+// that TMA writes in the 128-byte swizzle; and the grid both fp32 kernels
+// share (grid_for).
 //
 // Fragments of mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32, lane = 4 gr + tq:
 //   A 16x8 (m x k), 4 regs: (gr, tq), (gr+8, tq), (gr, tq+4), (gr+8, tq+4)
@@ -39,6 +39,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "tma.cuh"
 
 namespace tf32 {
 
@@ -224,23 +225,9 @@ struct Grid {
   int groups, warps;
 };
 
-// The SMs of `device` and the most dynamic shared memory a block may opt
-// into there, read once a device
-inline void device_limits(int device, int* sms, int* smem) {
-  static int cache[64][2] = {};
-  int local[2] = {0, 0};
-  int* c = device >= 0 && device < 64 ? cache[device] : local;
-  if (!c[0]) {
-    cudaDeviceGetAttribute(&c[0], cudaDevAttrMultiProcessorCount, device);
-    cudaDeviceGetAttribute(&c[1], cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  }
-  *sms = c[0];
-  *smem = c[1];
-}
-
 inline Grid grid_for(int device, int heads, int tiles, int most) {
   int sm_count = 0, smem = 0;
-  device_limits(device, &sm_count, &smem);
+  tma::device_limits(device, &sm_count, &smem);
   if (!sm_count) sm_count = 132;
   int warps = tiles < most ? tiles : most;
   for (int w = warps - 1; w >= 2; --w)
@@ -252,30 +239,6 @@ inline Grid grid_for(int device, int heads, int tiles, int most) {
     warps = (tiles + groups - 1) / groups;
   }
   return {(tiles + warps - 1) / warps, warps};
-}
-
-// Once a kernel (by its address: each instance of a template apart) and
-// device: the most dynamic shared memory the device allows, returned in
-// *limit. Launches then set nothing. (The shared-memory carveout is left to
-// the driver: setting it to the most measured no faster.)
-inline cudaError_t configure_once(const void* kernel, int device, int* limit) {
-  constexpr int kSlots = 16;
-  static const void* done[64][kSlots] = {};
-  int sms = 0;
-  device_limits(device, &sms, limit);
-  const bool cached = device >= 0 && device < 64;
-  if (cached)
-    for (int i = 0; i < kSlots && done[device][i]; ++i)
-      if (done[device][i] == kernel) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *limit);
-  if (err == cudaSuccess && cached)
-    for (int i = 0; i < kSlots; ++i)
-      if (!done[device][i]) {
-        done[device][i] = kernel;
-        break;
-      }
-  return err;
 }
 
 }  // namespace tf32

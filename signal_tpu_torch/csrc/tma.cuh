@@ -1,7 +1,8 @@
 // Hopper's asynchronous copy engine for the attention kernels, sm_90a:
 // tensor maps over a head's column block, TMA loads (plain and multicast
 // into a thread-block cluster) that complete on an mbarrier, the cluster
-// barrier, and the 128-byte swizzle that TMA writes.
+// barrier, and the 128-byte swizzle that TMA writes; and the launch helpers
+// (device_limits, configure_once).
 //
 // A tile of rows is stored in slabs of kSlab = 64 bf16 columns (128 bytes,
 // one row of the 128-byte swizzle): slab s holds columns 64 s .. 64 s + 63
@@ -183,6 +184,46 @@ inline int encode_heads(CUtensorMap* map, const void* base, int B, int L, int H,
 inline int encode_heads_f32(CUtensorMap* map, const void* base, int B, int L, int H, int hd,
                             int rows) {
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, 32, base, B, L, H, hd, rows);
+}
+
+// Launch helpers every kernel of the port shares.
+//
+// The SMs of `device` and the most dynamic shared memory a block may opt
+// into there, read once a device
+inline void device_limits(int device, int* sms, int* smem) {
+  static int cache[64][2] = {};
+  int local[2] = {0, 0};
+  int* c = device >= 0 && device < 64 ? cache[device] : local;
+  if (!c[0]) {
+    cudaDeviceGetAttribute(&c[0], cudaDevAttrMultiProcessorCount, device);
+    cudaDeviceGetAttribute(&c[1], cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  }
+  *sms = c[0];
+  *smem = c[1];
+}
+
+// Once a kernel (by its address: each instance of a template apart) and
+// device: the most dynamic shared memory the device allows, returned in
+// *limit. Launches then set nothing. (The shared-memory carveout is left to
+// the driver: setting it to the most measured no faster.)
+inline cudaError_t configure_once(const void* kernel, int device, int* limit) {
+  constexpr int kSlots = 16;
+  static const void* done[64][kSlots] = {};
+  int sms = 0;
+  device_limits(device, &sms, limit);
+  const bool cached = device >= 0 && device < 64;
+  if (cached)
+    for (int i = 0; i < kSlots && done[device][i]; ++i)
+      if (done[device][i] == kernel) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *limit);
+  if (err == cudaSuccess && cached)
+    for (int i = 0; i < kSlots; ++i)
+      if (!done[device][i]) {
+        done[device][i] = kernel;
+        break;
+      }
+  return err;
 }
 
 }  // namespace tma

@@ -8,7 +8,8 @@ rebuilt and a stale library is never loaded (the shared headers
 ``csrc/*.cuh`` count as part of every source). ``nvcc``'s report
 (``-Xptxas -v``: registers, shared memory, spills) is kept beside the
 library as ``<name>-<hash>.log``; :func:`ptxas_report` reads it and
-:func:`hmma_counts` counts each kernel's tensor-core instructions.
+:func:`hmma_counts` counts each kernel's tensor-core instructions (``HMMA``
+of ``mma.sync``, ``HGMMA`` of ``wgmma``).
 """
 
 from __future__ import annotations
@@ -113,7 +114,8 @@ def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
 
 def hmma_counts(name: str) -> Dict[str, int]:
     """Per kernel of the built ``csrc/<name>.cu`` (mangled name): the
-    tensor-core instructions (``HMMA``) in ``cuobjdump -sass``."""
+    tensor-core instructions (``HMMA``, and the warpgroup products'
+    ``HGMMA``) in ``cuobjdump -sass``."""
     text = subprocess.run([cuda_tool("cuobjdump"), "-sass", str(build([name])[name])],
                           capture_output=True, text=True, check=True).stdout
     out: Dict[str, int] = {}
@@ -123,6 +125,6 @@ def hmma_counts(name: str) -> Dict[str, int]:
         if hit:
             fn = hit.group(1)
             out[fn] = 0
-        elif fn is not None and "HMMA" in line:
+        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
             out[fn] += 1
     return out

@@ -43,7 +43,9 @@ shipped shape) the one-pass kernel, in which a warp holds a query tile's
 whole key row of logits in registers, so each logit and each exponential
 is computed once, and a block (or a thread-block cluster of up to 8, when
 the heads are too few to fill the card) brings each head's K and V on
-chip once with TMA; past 256 keys the two-pass kernel, counted in
+chip once with TMA; past 256 keys the long-route kernel, at any length
+(K and V streamed through a ring of chunks by TMA and swept twice: the
+rows' statistics, then the exact P and P·V), counted in
 ``attention_fwd_cuda.launches_long`` as well. A shape whose route does
 not fit in shared memory raises.
 
@@ -73,8 +75,8 @@ import torch
 MAX_HEAD_DIM = 128
 
 # the bf16 forward's one-pass kernel keeps a whole key row of logits in a
-# warp's registers: up to this many keys; longer rows take the two-pass
-# kernel (``csrc/attention_fwd.cu``'s ``attention_fwd_one_pass_max_keys``)
+# warp's registers: up to this many keys; longer rows take the long route
+# (``csrc/attention_fwd.cu``'s ``attention_fwd_one_pass_max_keys``)
 FWD_ONE_PASS_MAX_KEYS = 256
 # the forward's routes, as ``attention_fwd`` in the source numbers them
 FWD_ROUTES = {"fp32": 0, "one_pass": 1, "long": 2}
@@ -94,7 +96,7 @@ SMEM_OPTIN_BYTES = 232448
 def fwd_route(dtype: torch.dtype, Lk: int) -> str:
     """The forward kernel a launch takes: ``fp32`` (the CUDA cores), or in
     bf16 ``one_pass`` up to :data:`FWD_ONE_PASS_MAX_KEYS` keys and
-    ``long`` (the two-pass kernel) past them."""
+    ``long`` (two sweeps over streamed keys, any length) past them."""
     if dtype == torch.float32:
         return "fp32"
     return "one_pass" if Lk <= FWD_ONE_PASS_MAX_KEYS else "long"
@@ -182,6 +184,30 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     return _merge(dq, q.dtype), _merge(dk, k.dtype), _merge(dv, v.dtype)
 
 
+def attention64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                num_heads: int) -> torch.Tensor:
+    """softmax(scale q·kᵀ)·v per head in fp64, [B, Lq, D] → fp64: the
+    yardstick of the fp32 kernels' error (the plain versions compute in
+    fp32). Not on any path of the port; ``chip_smoke.py`` and
+    ``scripts/variants_torch_attention.py`` read it."""
+    qh, kh, vh = (t.double().unflatten(-1, (num_heads, -1)).transpose(1, 2) for t in (q, k, v))
+    p = ((qh @ kh.transpose(-1, -2)) * qh.shape[-1] ** -0.5).softmax(-1)
+    return (p @ vh).transpose(1, 2).flatten(2)
+
+
+def attention_bwd64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                    num_heads: int):
+    """(dq, dk, dv) of :func:`attention64` at output gradient g, in fp64."""
+    qh, kh, vh, gh = (t.double().unflatten(-1, (num_heads, -1)).transpose(1, 2)
+                      for t in (q, k, v, g))
+    scale = qh.shape[-1] ** -0.5
+    p = ((qh @ kh.transpose(-1, -2)) * scale).softmax(-1)
+    dp = gh @ vh.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    out = ((ds @ kh) * scale, (ds.transpose(-1, -2) @ qh) * scale, p.transpose(-1, -2) @ gh)
+    return tuple(t.transpose(1, 2).flatten(2) for t in out)
+
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -265,9 +291,9 @@ def attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch ``csrc/attention_fwd.cu`` on the current stream. q [B, Lq, D],
     k/v [B, Lk, D], fp32 or bf16, on the card → o [B, Lq, D]. fp32 takes
     its CUDA-core kernel; bf16 routes by the keys (:func:`fwd_route`): up
-    to 256 the one-pass kernel, past them the two-pass kernel; a shape
+    to 256 the one-pass kernel, past them the long-route kernel; a shape
     whose route does not fit in shared memory raises. Counts each launch
-    in ``attention_fwd_cuda.launches``, and those of the two-pass route
+    in ``attention_fwd_cuda.launches``, and those of the long route
     also in ``launches_long``, those of the fp32 route in
     ``launches_fp32``.
 

@@ -55,13 +55,17 @@ def _qkv(seed, B, Lq, Lk, D):
     (2, 9, 9, 48, 2, "float32"), (2, 9, 9, 48, 2, "bfloat16"),
     # the bf16 forward's routes: STRIDE_SIZE 12's 211 tokens and the
     # one-pass kernel's longest row (256 keys), then one key past it (the
-    # two-pass kernel)
+    # long route); a 384×128 input at STRIDE_SIZE 12 (311 tokens) and 3
+    # queries against 1024 keys on the long route, at hd 64 and 128
     (1, 211, 211, 64, 1, "bfloat16"), (1, 5, 256, 64, 1, "bfloat16"),
     (1, 5, 257, 64, 1, "bfloat16"),
+    (1, 311, 311, 64, 1, "bfloat16"), (1, 311, 311, 128, 1, "bfloat16"),
+    (1, 3, 1024, 64, 1, "bfloat16"), (1, 3, 1024, 128, 1, "bfloat16"),
 ], ids=["fp32", "bf16", "cross-fp32", "cross-bf16", "hd60", "hd96", "hd64",
         "lq1-lk17-fp32", "lq1-lk17-bf16", "l129-fp32", "l129-bf16",
         "hd8-fp32", "hd8-bf16", "hd24-fp32", "hd24-bf16",
-        "l211-bf16", "lq5-lk256-bf16", "lq5-lk257-bf16"])
+        "l211-bf16", "lq5-lk256-bf16", "lq5-lk257-bf16",
+        "l311-hd64-bf16", "l311-hd128-bf16", "lq3-lk1024-hd64-bf16", "lq3-lk1024-hd128-bf16"])
 def test_flash_attention_plain_matches_jax_kernel(B, Lq, Lk, D, H, dtype):
     q, k, v = _qkv(B * 100 + D, B, Lq, Lk, D)
     want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), num_heads=H,
@@ -170,21 +174,43 @@ def test_quick_gelu_matches_jax():
 
 def test_forward_routes_by_keys():
     """The bf16 forward's route is chosen in host code from the keys: the
-    one-pass kernel up to 256, the two-pass kernel past them; fp32 has one
-    kernel. The limit is the one the CUDA source holds."""
+    one-pass kernel up to 256, the long route past them (any length); fp32
+    has one kernel. The limit is the one the CUDA source holds."""
     from pathlib import Path
 
     from signal_tpu_torch.ops import flash_attention as fa
 
     assert fa.FWD_ONE_PASS_MAX_KEYS == 256
-    assert [fa.fwd_route(torch.bfloat16, n) for n in (1, 129, 211, 256, 257, 1024)] == \
-        ["one_pass"] * 4 + ["long"] * 2
+    assert [fa.fwd_route(torch.bfloat16, n) for n in (1, 129, 211, 256, 257, 311, 1024, 4000)] \
+        == ["one_pass"] * 4 + ["long"] * 4
     assert {fa.fwd_route(torch.float32, n) for n in (1, 256, 257)} == {"fp32"}
     assert set(fa.FWD_ROUTES) == {"fp32", "one_pass", "long"}
     src = (Path(fa.__file__).parent.parent / "csrc" / "attention_fwd.cu").read_text()
     assert f"constexpr int kOnePassMaxKeys = {fa.FWD_ONE_PASS_MAX_KEYS};" in src
     assert f"route == {fa.FWD_ROUTES['one_pass']}) return launch_one_pass" in src
-    assert f"route == {fa.FWD_ROUTES['long']}) {{" in src
+    assert f"route == {fa.FWD_ROUTES['long']}) return launch_long" in src
+
+
+def test_fp64_yardsticks_match_the_plain_versions():
+    """The fp64 attention and its gradients, the yardstick that the card
+    runs hold the fp32 kernels' error to, equal the plain fp32 versions on
+    fp32 inputs to fp32 rounding (hd 64 and 128, Lq != Lk)."""
+    from signal_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(16)
+    for D, H in ((128, 2), (256, 2)):
+        q, g = (torch.from_numpy(rng.standard_normal((2, 5, D)).astype(np.float32))
+                for _ in "qg")
+        k, v = (torch.from_numpy(rng.standard_normal((2, 9, D)).astype(np.float32))
+                for _ in "kv")
+        got = fa.attention64(q, k, v, H)
+        assert got.dtype == torch.float64 and got.shape == q.shape
+        np.testing.assert_allclose(got.numpy(), fa.flash_attention_reference(q, k, v, H).numpy(),
+                                   **FP32_TOL)
+        for a, b in zip(fa.attention_bwd64(q, k, v, g, H),
+                        fa.flash_attention_bwd_reference(q, k, v, g, H)):
+            assert a.dtype == torch.float64 and a.shape == b.shape
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4, rtol=1e-4)
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

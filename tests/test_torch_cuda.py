@@ -16,7 +16,7 @@ pytestmark = pytest.mark.cuda
 # length at or next to a tile edge, at head dims 8 and 24 (a zero-padded
 # contraction), 64 and 128; cross attention both ways. The forward's
 # one-pass kernel holds 64, 144, 224 or 256 keys of a row in registers
-# (143-145, 208-225, 255-256) and gives way to the two-pass kernel past 256
+# (143-145, 208-225, 255-256) and gives way to the long route past 256
 # (257); the backward's fused kernel takes up to 160 (159-161), holding 136
 # or 160 keys of a row (136-137)
 _EDGE_LENGTHS = [(n, n) for n in (1, 15, 16, 17, 129, 136, 137, 143, 144, 145, 159, 160, 161, 192, 193,
@@ -38,6 +38,20 @@ _LONG_EDGES = [(2, lq, lk, 2 * hd, 2, torch.bfloat16) for hd in (64, 128)
 _LONG_TILE_EDGES = [(2, lq, lk, 2 * hd, 2, torch.bfloat16) for hd in (64, 128)
                     for lq, lk in [(n, n) for n in (225, 257, 385, 513, 641, 769, 897, 1024)]
                     + [(257, 1), (1, 257), (1024, 17), (17, 1024)]]
+
+# the bf16 forward's long route past 256 keys (K and V streamed in chunks
+# of 64 keys through a ring of four stages at hd <= 64, three past it; each
+# chunk loaded three times: K twice, V once; a block takes 64 query rows):
+# one past 256, a 384×128 input's 311 tokens, each side of a chunk's edge
+# as the ring wraps (320, 321, 383-385, 447-449, 511-513, 575-577,
+# 768-769), its 1024 keys, and 1 or 3 queries (a block's rows nearly all
+# past Lq) and 17 or 145 (a block's last tiles past Lq) against many keys,
+# at head dims 8, 64 and 128
+_LONG_FWD_EDGES = [(2, lq, lk, 2 * hd, 2, torch.bfloat16) for hd in (8, 64, 128)
+                   for lq, lk in [(n, n) for n in (257, 311, 320, 321, 383, 384, 385, 447, 448,
+                                                   449, 511, 512, 513, 575, 576, 577, 768, 769,
+                                                   1024)]
+                   + [(1, 1024), (3, 1024), (3, 384), (17, 1024), (145, 300), (1024, 300)]]
 
 # the fp32 kernels (the forward's keys streamed in chunks of 32, the
 # backward's keys or queries in chunks of 16): every bf16 edge length, the
@@ -80,8 +94,9 @@ def cuda_device():
     (64, 129, 129, 768, 12, torch.bfloat16),  # and its train step, B 64
     (64, 129, 129, 768, 12, torch.float32),
     (2, 17, 33, 256, 2, torch.float32),       # hd 128, ragged lengths
-    (4, 3, 384, 512, 8, torch.bfloat16),      # keys past a register row: two passes
+    (4, 3, 384, 512, 8, torch.bfloat16),      # keys past a register row: the long route
     (2, 17, 300, 256, 2, torch.bfloat16),     # the same at hd 128
+    (8, 311, 311, 768, 12, torch.bfloat16),   # a 384×128 input at STRIDE_SIZE 12
     # fewer heads than the card's 132 SMs: the one-pass kernel spreads a
     # head's query tiles over a cluster that shares its K and V
     (3, 211, 211, 768, 12, torch.bfloat16),
@@ -91,7 +106,11 @@ def cuda_device():
     *_TP_SHAPES,
     *_PIPE_SHAPES,
     *_EDGES,
+    *_LONG_FWD_EDGES,
     *_FP32_EDGES,
+    # bf16's long route takes any length
+    (1, 4, 4000, 64, 1, torch.bfloat16),
+    (1, 4, 4000, 128, 1, torch.bfloat16),
     # fp32: the most keys one warp's rows of logits fit, at hd 64 and 128
     (1, 4, 3264, 64, 1, torch.float32),
     (1, 4, 2944, 128, 1, torch.float32),
@@ -126,20 +145,25 @@ def test_attention_kernel_rejects_what_it_cannot_take(cuda_device):
     kv = torch.zeros(1, 4000, 64, device=cuda_device)
     with pytest.raises(ValueError, match="shared"):
         attention_fwd_cuda(q, kv, kv, 1)                  # Lk beyond shared memory
-    # bf16: past 256 keys the two-pass kernel, which holds all of a head's
-    # keys in shared memory too
-    with pytest.raises(ValueError, match=r"long route\) needs \d+ B of shared memory"):
-        attention_fwd_cuda(q.bfloat16(), kv.bfloat16(), kv.bfloat16(), 1)
+    # bf16: past 256 keys the long route, which streams the keys and takes
+    # any length (its values at 4000 keys: test_attention_kernel_matches_plain_version)
+    before = attention_fwd_cuda.launches_long
+    attention_fwd_cuda(q.bfloat16(), kv.bfloat16(), kv.bfloat16(), 1)
+    torch.cuda.synchronize()
+    assert attention_fwd_cuda.launches_long == before + 1
 
 
 def test_attention_fwd_routes_by_keys(cuda_device):
-    """bf16 up to 256 keys takes the one-pass kernel, past them the
-    two-pass kernel (counted in ``launches_long`` too); fp32 its own."""
+    """bf16 up to 256 keys takes the one-pass kernel, past them the long
+    route (counted in ``launches_long`` too), at any length; fp32 its
+    own."""
     from signal_tpu_torch.ops.flash_attention import attention_fwd_cuda
 
     gen = torch.Generator(device=cuda_device).manual_seed(7)
     for Lk, dtype, long_route in ((256, torch.bfloat16, 0), (129, torch.bfloat16, 0),
-                                  (257, torch.bfloat16, 1), (300, torch.float32, 0)):
+                                  (257, torch.bfloat16, 1), (311, torch.bfloat16, 1),
+                                  (1024, torch.bfloat16, 1), (4000, torch.bfloat16, 1),
+                                  (300, torch.float32, 0)):
         q = torch.randn(2, 9, 128, device=cuda_device, generator=gen).to(dtype)
         kv = torch.randn(2, Lk, 128, device=cuda_device, generator=gen).to(dtype)
         before = (attention_fwd_cuda.launches, attention_fwd_cuda.launches_long,
@@ -152,17 +176,24 @@ def test_attention_fwd_routes_by_keys(cuda_device):
             (1, long_route, dtype == torch.float32), (Lk, dtype)
 
 
-def test_attention_fwd_one_pass_repeats_to_the_bit(cuda_device):
-    """The one-pass kernel sums in one fixed order, with no atomics: two
-    launches at STRIDE_SIZE 12's train shape give the same bits."""
+@pytest.mark.parametrize("B, L, counter", [
+    (192, 211, "launches"),       # the one-pass kernel at STRIDE_SIZE 12's train shape
+    (4, 311, "launches_long"),    # the long route at a 384×128 input's STRIDE_SIZE 12
+])
+def test_attention_fwd_repeats_to_the_bit(cuda_device, B, L, counter):
+    """The one-pass kernel and the long route sum in one fixed order, with
+    no atomics (each block's warps own their query tiles; the long route's
+    ring only orders the copies): two launches give the same bits."""
     from signal_tpu_torch.ops.flash_attention import attention_fwd_cuda
 
     gen = torch.Generator(device=cuda_device).manual_seed(8)
-    q, k, v = (torch.randn(192, 211, 768, device=cuda_device, generator=gen).bfloat16()
+    q, k, v = (torch.randn(B, L, 768, device=cuda_device, generator=gen).bfloat16()
                for _ in "qkv")
+    before = getattr(attention_fwd_cuda, counter)
     first = attention_fwd_cuda(q, k, v, 12)
     second = attention_fwd_cuda(q, k, v, 12)
     torch.cuda.synchronize()
+    assert getattr(attention_fwd_cuda, counter) == before + 2
     assert torch.equal(first, second)
 
 
@@ -364,24 +395,26 @@ def test_fp32_kernels_spill_nothing_the_backward_on_the_tensor_cores(cuda_device
 
 
 def test_bf16_kernels_run_on_the_tensor_cores_without_spills(cuda_device):
-    """Each library's bf16 kernels hold tensor-core instructions (HMMA in
-    ``cuobjdump -sass``) and spill nothing (``nvcc -Xptxas -v``): the
-    forward's one-pass kernel (each of its instances), its two-pass kernel,
-    the backward's fused kernel (each of its instances) and its long
-    route's two."""
+    """Each library's bf16 kernels hold tensor-core instructions (HMMA, or
+    the long route's warpgroup HGMMA, in ``cuobjdump -sass``) and spill
+    nothing (``nvcc -Xptxas -v``): the
+    forward's one-pass kernel and its long-route kernel (each of their
+    instances), the backward's fused kernel (each of its instances) and
+    its long route's two."""
     from signal_tpu_torch.ops import _build
 
     try:
         _build.cuda_tool("cuobjdump")
     except RuntimeError:
         pytest.skip("needs cuobjdump")
-    bf16_kernels = ("mma_kernel", "onepass_kernel", "fused_kernel")
+    bf16_kernels = ("mma_kernel", "onepass_kernel", "fwd_long_kernel", "fused_kernel")
     for name in ("attention_fwd", "attention_bwd"):
         hmma = {fn: n for fn, n in _build.hmma_counts(name).items()
                 if any(k in fn for k in bf16_kernels)}
         assert hmma and all(hmma.values()), (name, hmma)
         if name == "attention_fwd":
             assert sum("onepass_kernel" in fn for fn in hmma) == 4, hmma
+            assert sum("fwd_long_kernel" in fn for fn in hmma) == 2, hmma
         else:
             assert sum("fused_kernel" in fn for fn in hmma) == 4, hmma
         report = {fn: r for fn, r in _build.ptxas_report(name).items()
