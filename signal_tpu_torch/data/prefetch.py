@@ -4,6 +4,12 @@ port's own copy of `signal_tpu/data/prefetch.py`).
 A single background thread drains the loader (whose own thread pool does
 the decode) and eagerly runs ``put`` (the host→device copy), so batch
 n+1's decode and transfer run while the device executes batch n.
+
+Spans (``utils/profiler``): the worker's ``data.prefetch.put`` (``put`` and
+then the queue's put, which blocks while the queue is full) and the
+consumer's ``data.prefetch.wait`` (the queue's get) both carry the item's
+number, so a batch's time in the queue runs from the end of its put to
+the end of its wait, and the step that takes it carries the number too.
 """
 
 from __future__ import annotations
@@ -11,6 +17,8 @@ from __future__ import annotations
 import queue
 import threading
 from typing import Callable, Iterable, Iterator
+
+from signal_tpu_torch.utils.profiler import span
 
 _SENTINEL = object()
 
@@ -30,10 +38,11 @@ def prefetch(iterable: Iterable, put: Callable, depth: int = 2) -> Iterator:
 
     def worker():
         try:
-            for item in iterable:
+            for k, item in enumerate(iterable):
                 if stop.is_set():
                     break
-                q.put(put(item))
+                with span("data.prefetch.put", request=k):
+                    q.put(put(item))
         except BaseException as e:  # noqa: BLE001 — surface to consumer
             err.append(e)
         finally:
@@ -42,11 +51,14 @@ def prefetch(iterable: Iterable, put: Callable, depth: int = 2) -> Iterator:
     threading.Thread(target=worker, daemon=True,
                      name="signal-tpu-torch-prefetch").start()
     try:
+        k = 0
         while True:
-            item = q.get()
+            with span("data.prefetch.wait", request=k):
+                item = q.get()
             if item is _SENTINEL:
                 break
             yield item
+            k += 1
     finally:
         stop.set()
         try:  # free a queue slot so a worker blocked on q.put can exit

@@ -20,6 +20,7 @@ from signal_tpu_torch.data.prefetch import prefetch
 from signal_tpu_torch.metrics import R1mAPEvaluator
 from signal_tpu_torch.models.signal_model import Signal, forward_eval
 from signal_tpu_torch.parallel.mesh import all_gather_rows
+from signal_tpu_torch.utils.profiler import span
 
 logger = logging.getLogger("signal_tpu_torch.eval")
 
@@ -28,11 +29,11 @@ def make_eval_step(normalize):
     """→ ``eval_step(model, imgs, camids)``: device-side Normalize of a
     uint8 batch (``normalize`` = (PIXEL_MEAN, PIXEL_STD); a float batch,
     normalized on the host, passes through), then :func:`forward_eval`
-    under ``torch.inference_mode``."""
+    under ``torch.inference_mode``, in an ``eval.step`` span."""
     mean, std = normalize
 
     def eval_step(model: Signal, imgs, camids) -> torch.Tensor:
-        with torch.inference_mode():
+        with span("eval.step"), torch.inference_mode():
             return forward_eval(model, normalize_images(imgs, mean, std), camids)
 
     return eval_step

@@ -52,6 +52,7 @@ from signal_tpu_torch.parallel.zero import Zero1, optimizer_parameters
 from signal_tpu_torch.solver import current_lr, make_optimizer, schedule_coeffs, set_lr
 from signal_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from signal_tpu_torch.utils.meter import AverageMeter
+from signal_tpu_torch.utils.profiler import span
 
 logger = logging.getLogger("signal_tpu_torch.train")
 
@@ -97,6 +98,11 @@ def make_train_step(model: Signal, cfg, num_classes: int, optimizer: torch.optim
     order (``prepare``, ``forward``, ``backward``, ``update``), so that a
     profiler can time each stage of this very step.
 
+    Spans (``utils/profiler``): ``train.step`` around the call, and inside
+    it one a stage (``train.prepare``, ``train.forward`` with ``train.loss``
+    in it, ``train.backward``, ``train.update``), each stage's once a
+    microbatch under ACCUM_ITER (``train.update`` once, around the step).
+
     With ``model.mesh`` (data parallelism), ``imgs``, ``pids`` and
     ``camids`` are this rank's rows of the global batch (under ACCUM_ITER
     each rank's microbatch i is the i-th contiguous piece of its rows, and
@@ -130,32 +136,35 @@ def make_train_step(model: Signal, cfg, num_classes: int, optimizer: torch.optim
 
     @torch.no_grad()
     def prepare(imgs):
-        imgs = normalize_images(imgs, mean, std)
-        if device_augment:
-            if not isinstance(imgs, dict):
-                imgs = {"RGB": imgs[:, 0], "NI": imgs[:, 1], "TI": imgs[:, 2]}
-            imgs = augment_batch(gen, imgs, **aug, part=part)
-        return imgs
+        with span("train.prepare"):
+            imgs = normalize_images(imgs, mean, std)
+            if device_augment:
+                if not isinstance(imgs, dict):
+                    imgs = {"RGB": imgs[:, 0], "NI": imgs[:, 1], "TI": imgs[:, 2]}
+                imgs = augment_batch(gen, imgs, **aug, part=part)
+            return imgs
 
     def forward(imgs, pids, camids):
-        with true_fp32():
+        with span("train.forward"), true_fp32():
             out = forward_train(model, imgs, camids, gen=gen if drop_path else None)
             out["pids"] = pids = all_gather_rows(pids, mesh)
-            loss = total_train_loss(out, pids, loss_fn, gram_weight=gram_w, pat_weight=pat_w,
-                                    moe_weight=moe_w)
-            if use_center:
-                loss = loss + center_w * center_loss(centers, out["feats"][0], pids)
+            with span("train.loss"):
+                loss = total_train_loss(out, pids, loss_fn, gram_weight=gram_w,
+                                        pat_weight=pat_w, moe_weight=moe_w)
+                if use_center:
+                    loss = loss + center_w * center_loss(centers, out["feats"][0], pids)
             return out, loss * share if data_parallel(mesh) else loss
 
     def backward(loss, first: bool = True):
         """``first``: the batch's first microbatch, whose gradients replace
         the last step's; the others add to them."""
-        if first:
-            optimizer.zero_grad(set_to_none=True)
-            if use_center:
-                centers.grad = None
-        with true_fp32():
-            loss.backward()
+        with span("train.backward"):
+            if first:
+                optimizer.zero_grad(set_to_none=True)
+                if use_center:
+                    centers.grad = None
+            with true_fp32():
+                loss.backward()
 
     def accuracy(out):
         return (out["scores"][0].argmax(dim=1) == out["pids"]).float().mean()
@@ -171,8 +180,9 @@ def make_train_step(model: Signal, cfg, num_classes: int, optimizer: torch.optim
             centers.sub_(center_lr * (g / center_w))
 
     def update(out, loss, pids):
-        apply_gradients()
-        return all_reduce_scalar(loss.detach(), mesh), accuracy(out)
+        with span("train.update"):
+            apply_gradients()
+            return all_reduce_scalar(loss.detach(), mesh), accuracy(out)
 
     def split(x):
         if isinstance(x, dict):
@@ -183,20 +193,22 @@ def make_train_step(model: Signal, cfg, num_classes: int, optimizer: torch.optim
         return x.chunk(accum, dim=0)
 
     def train_step(imgs, pids: torch.Tensor, camids: torch.Tensor):
-        if accum == 1:
-            out, loss = forward(prepare(imgs), pids, camids)
-            backward(loss)
-            return update(out, loss, pids)
-        loss_sum = acc_sum = 0.0
-        for i, (mb_imgs, mb_pids, mb_camids) in enumerate(
-                zip(split(imgs), split(pids), split(camids))):
-            out, loss = forward(prepare(mb_imgs), mb_pids, mb_camids)
-            backward(loss, first=i == 0)
-            loss_sum = loss_sum + loss.detach()
-            acc_sum = acc_sum + accuracy(out)
-            del out, loss
-        apply_gradients()
-        return all_reduce_scalar(loss_sum * (1.0 / accum), mesh), acc_sum * (1.0 / accum)
+        with span("train.step"):
+            if accum == 1:
+                out, loss = forward(prepare(imgs), pids, camids)
+                backward(loss)
+                return update(out, loss, pids)
+            loss_sum = acc_sum = 0.0
+            for i, (mb_imgs, mb_pids, mb_camids) in enumerate(
+                    zip(split(imgs), split(pids), split(camids))):
+                out, loss = forward(prepare(mb_imgs), mb_pids, mb_camids)
+                backward(loss, first=i == 0)
+                loss_sum = loss_sum + loss.detach()
+                acc_sum = acc_sum + accuracy(out)
+                del out, loss
+            with span("train.update"):
+                apply_gradients()
+            return all_reduce_scalar(loss_sum * (1.0 / accum), mesh), acc_sum * (1.0 / accum)
 
     train_step.stages = (prepare, forward, backward, update)
     return train_step

@@ -53,6 +53,7 @@ from signal_tpu_torch.models.vit_imagenet import ImageNetViT, drop_path_masks, \
 from signal_tpu_torch.models.vit_prompt import MODALITY_ORDER, vit_forward_prompt
 from signal_tpu_torch.ops.attention import trunc_normal_
 from signal_tpu_torch.parallel.mesh import gather_rows
+from signal_tpu_torch.utils.profiler import span
 
 MODALITIES = ("RGB", "NI", "TI")
 
@@ -454,17 +455,21 @@ def forward_eval(model: Signal, imgs: Dict[str, torch.Tensor] | torch.Tensor,
                  cam_label, view_label=None) -> torch.Tensor:
     """Inference features: [B, 3D] (no SIM) or [B, 6D] (with SIM), taken
     BEFORE the BNNecks (TEST.NECK_FEAT='before', `make_model.py:284-290`).
-    A CNN normalises with its running statistics."""
+    A CNN normalises with its running statistics. Spans: ``model.tower``,
+    ``model.sim``."""
     spec = model.spec
     x = _apply_miss(_stack_modalities(imgs), spec.miss)
     # MODEL.REMAT as JAX's eval passes it: it checkpoints nothing without
     # grad mode, and 'half' refuses a pipeline in eval too
-    patches, cls, _ = _encode(model, x, cam_label, remat=spec.remat, view_label=view_label)
+    with span("model.tower"):
+        patches, cls, _ = _encode(model, x, cam_label, remat=spec.remat,
+                                  view_label=view_label)
     ori = cls.reshape(cls.shape[0], -1)
     if not spec.use_a:
         return ori
-    vars_total, _ = sim_forward(model.SIM, patches, cls, k=spec.topk,
-                                keep_ratio=spec.keep_ratio, compute_dtype=spec.cdtype)
+    with span("model.sim"):
+        vars_total, _ = sim_forward(model.SIM, patches, cls, k=spec.topk,
+                                    keep_ratio=spec.keep_ratio, compute_dtype=spec.cdtype)
     return torch.cat([ori, vars_total], dim=-1)
 
 
@@ -489,7 +494,10 @@ def forward_train(model: Signal, imgs: Dict[str, torch.Tensor] | torch.Tensor,
     them; the head features and GAM's normalised means are gathered, so
     the scores, features, BNNeck statistics and ``gam`` are the global
     batch's on every rank, while ``lam`` is the mean over this rank's
-    rows. The drop-path masks are the global batch's draws, sliced."""
+    rows. The drop-path masks are the global batch's draws, sliced.
+
+    Spans: ``model.tower``, ``model.sim``, ``model.align`` (GAM + LAM) and
+    ``model.heads`` (the BNNecks and classifiers)."""
     spec = model.spec
     mesh = model.mesh
     imgs = _stack_modalities(imgs)
@@ -501,20 +509,23 @@ def forward_train(model: Signal, imgs: Dict[str, torch.Tensor] | torch.Tensor,
         drop_masks = [m if m is None else m[:, index * rows:(index + 1) * rows]
                       for m in drop_path_masks(gen, spec.layers, spec.drop_path,
                                                rows * parts, imgs.device)]
-    patches, cls, moe_aux = _encode(model, imgs, cam_label, remat=spec.remat,
-                                    view_label=view_label, training=True,
-                                    drop_masks=drop_masks)
+    with span("model.tower"):
+        patches, cls, moe_aux = _encode(model, imgs, cam_label, remat=spec.remat,
+                                        view_label=view_label, training=True,
+                                        drop_masks=drop_masks)
     out: Dict[str, Any] = {"scores": [], "feats": [], "gam": None, "lam": None,
                            "masks": None, "moe_aux": moe_aux}
     vars_total = None
     if spec.use_a:
-        vars_total, out["masks"] = sim_forward(model.SIM, patches, cls, k=spec.topk,
-                                               keep_ratio=spec.keep_ratio,
-                                               compute_dtype=spec.cdtype)
-        vars_total = gather(vars_total)
+        with span("model.sim"):
+            vars_total, out["masks"] = sim_forward(model.SIM, patches, cls, k=spec.topk,
+                                                   keep_ratio=spec.keep_ratio,
+                                                   compute_dtype=spec.cdtype)
+            vars_total = gather(vars_total)
     if spec.use_b:
-        out["gam"], out["lam"] = align_forward(model.AlignM, patches, h=spec.h, w=spec.w,
-                                               stage=spec.stage, gather=gather)
+        with span("model.align"):
+            out["gam"], out["lam"] = align_forward(model.AlignM, patches, h=spec.h, w=spec.w,
+                                                   stage=spec.stage, gather=gather)
     cls = gather(cls)
 
     def head(bn: str, classifier: str, feat: torch.Tensor) -> None:
@@ -522,11 +533,12 @@ def forward_train(model: Signal, imgs: Dict[str, torch.Tensor] | torch.Tensor,
         out["scores"].append(F.linear(fbn, getattr(model, classifier).weight))
         out["feats"].append(feat)
 
-    if spec.direct:
-        head("bottleneck", "classifier", cls.reshape(cls.shape[0], -1))
-    else:
-        for i, m in enumerate(("r", "n", "t")):
-            head(f"bottleneck_{m}", f"classifier_{m}", cls[:, i])
-    if spec.use_a:
-        head("bottleneck_var", "classifier_var", vars_total)
+    with span("model.heads"):
+        if spec.direct:
+            head("bottleneck", "classifier", cls.reshape(cls.shape[0], -1))
+        else:
+            for i, m in enumerate(("r", "n", "t")):
+                head(f"bottleneck_{m}", f"classifier_{m}", cls[:, i])
+        if spec.use_a:
+            head("bottleneck_var", "classifier_var", vars_total)
     return out

@@ -604,3 +604,40 @@ def test_variant_train_step_goes_through_both_kernels(cuda_device, name, opts):
     for a, b in zip(g_k, g_p):
         if b is not None and b.norm() > 1e-6:
             torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4 * b.abs().max().item())
+
+
+def test_spans_land_on_the_cuda_timelines_clock(cuda_device, tmp_path):
+    """On a profile of CUDA activity alone (no host operators), a span
+    around ``torch.cuda.synchronize()``, mapped with the trace's
+    ``baseTimeNanoseconds``, contains the timeline's one
+    ``cudaDeviceSynchronize`` of that moment. The call's ``tid`` is the
+    thread that made every CUDA call here: a CUDA-only profile names a
+    thread by the profiler's own id until the process has profiled the
+    host's activity, so it need not be the span's native id."""
+    import json
+
+    from signal_tpu_torch.utils import profiler
+
+    x = torch.randn(2048, 2048, device=cuda_device)
+    x @ x
+    torch.cuda.synchronize()
+    path = str(tmp_path / "t.json")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof, \
+            profiler.recording() as spans:
+        for _ in range(4):
+            x = x @ x
+        with profiler.span("sync"):
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        doc = json.load(f)
+    (sync,) = profiler.chrome_events(spans, doc["baseTimeNanoseconds"])
+    calls = [e for e in doc["traceEvents"] if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    syncs = [e for e in calls if e["name"] == "cudaDeviceSynchronize"]
+    inside = [e for e in syncs if sync["ts"] <= e["ts"]
+              and e["ts"] + e["dur"] <= sync["ts"] + sync["dur"]]
+    # each call's start and end against the span's, µs
+    seen = [(e["tid"], e["ts"] - sync["ts"], e["ts"] + e["dur"] - sync["ts"] - sync["dur"])
+            for e in syncs]
+    assert len(inside) == 1, (sync["tid"], sync["dur"], seen)
+    assert {e["tid"] for e in calls} == {inside[0]["tid"]}

@@ -114,19 +114,22 @@ def test_tracer_writes_log(tmp_path):
         tracer.ExecutionTracer(mode="everything")
 
 
-def test_profiler_trace_step_timer_and_time_fn(tmp_path):
+def test_profiler_trace_writes_the_timeline_and_the_spans(tmp_path):
     with profiler.trace(str(tmp_path / "tr")) as prof:
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with profiler.span("train.step", request=2):
+            with profiler.span("model.tower"):
+                torch.ones(64, 64) @ torch.ones(64, 64)
     events = json.loads((tmp_path / "tr" / "trace.json").read_text())["traceEvents"]
     assert any("mm" in e.get("name", "") for e in events)
     assert any("mm" in e.key for e in prof.key_averages())
-    t = profiler.StepTimer()
-    t.tick(4)
-    per_batch, speed = t.summary(batch_size=64)
-    assert per_batch >= 0.0 and speed > 0.0 and t.batches == 4
-    calls = []
-    sec = profiler.time_fn(lambda: calls.append(1), iters=5, warmup=2)
-    assert sec >= 0.0 and len(calls) == 7
+    mine = [e for e in events if e.get("cat") == "program_span"]
+    assert [e["name"] for e in mine] == ["train.step", "model.tower"]
+    assert [e["args"]["parent"] for e in mine] == [None, 0]
+    assert [e["args"]["request"] for e in mine] == [2, 2]
+    mm = next(e for e in events if e.get("name") == "aten::mm")
+    assert mine[1]["ts"] <= mm["ts"] and mm["ts"] + mm["dur"] <= mine[1]["ts"] + mine[1]["dur"]
+    assert mine[0]["args"]["self_us"] == pytest.approx(mine[0]["dur"] - mine[1]["dur"], abs=1e-3)
+    assert profiler._recorder is None
 
 
 def test_masks_overlay_and_ranked_list_equal_jax(tmp_path):
