@@ -31,13 +31,20 @@ Phases (any failure exits non-zero; nothing is caught):
      route past 256 keys ([128, 3, 384], [192, 311, 768]) and at deit_small's D
      = 384 with 6 heads ([384, 129, 384] and [192, 129, 384] forward,
      [192, 129, 384] backward); fp32 bounds count products as 3xTF32 at a
-     third of the TF32 rate;
+     third of the TF32 rate; then each of the tower's one-pass GEMM
+     epilogues (``ops/epilogue.py``: bias_cast, bias_gelu, bias_residual)
+     against the ATen chain it replaces, to the bit (signed zeros
+     included), at the gallery shapes ([49536, 768] × 3, [49536, 3072],
+     [49536, 768] and its residual) and at ragged ones, with ms, the
+     chain's ms and the byte bound at the gallery shapes;
   4. eval slice: ``forward_eval`` of the flagship RGBNT201 model (CLIP
      ViT-B/16, width 768, 12 heads, 256×128, SIE, SIM TOPK 80; random
      weights from a seed) on B=128 random packed uint8 images, kernel path
      against the plain-attention path (fp32 features; bf16 ViT-output
-     cosines and SIM mask agreement), 12 kernel launches per forward,
-     ms/batch;
+     cosines and SIM mask agreement; the plain path under grad mode with
+     no parameter requiring it, so its GEMM epilogues are the ATen chain
+     too), 12 kernel launches and 48 epilogue launches (4 a block) per
+     forward, ms/batch;
   5. eval end to end: ``signal_tpu_torch.cli.test_main`` on
      configs/synthetic/smoke.yml at full width → mAP/CMC;
   6. train slice: the flagship train step (GAM + LAM, Adam, IMS_PER_BATCH
@@ -68,7 +75,8 @@ Phases (any failure exits non-zero; nothing is caught):
  12. serving: the flagship model (bf16, random weights from SOLVER.SEED)
      exported with ``torch.export`` with uint8 input, at a fixed batch of
      128 and at a symbolic batch, both on the card (the attention kernel in
-     the graph as its registered operator, 12 launches a batch), saved,
+     the graph as its registered operator, 12 launches a batch, and the
+     epilogues as theirs, 48 a batch), saved,
      loaded and run against eager ``forward_eval`` (per-row cosine >
      0.9999): the fixed one at B = 128, the symbolic one at B = 2, 8 and
      128; both timed against eager in turns at B = 128; artifact bytes;
@@ -87,7 +95,8 @@ Phases (any failure exits non-zero; nothing is caught):
      driven path that reaches it): ``forward_eval`` at B = 128
      and one train step at B = 64, kernel path against plain path as
      phases 4 and 6; launches per eval forward, train forward and backward
-     (12 / 24 / 12, the prompted towers 36 / 72 / 36), ms per step by the
+     (12 / 24 / 12, the prompted towers 36 / 72 / 36), epilogue launches
+     per eval forward (4 a block; none with an adapter or MoE), ms per step by the
      host clock and device time, peak memory (no MFU: ``utils/flops``
      counts the plain tower);
  15. the other backbones at full width (random weights from SOLVER.SEED;
@@ -112,7 +121,8 @@ Phases (any failure exits non-zero; nothing is caught):
      scores, triplet on the three features, image-to-text cross entropy
      against the 171 classes' text features, SupCon both ways; Adam), the
      kernel path against the plain path as phases 4 and 6; launches (12 a
-     forward, 24 + 12 a step), ms by the host clock and device time, peak
+     forward and 48 epilogue launches, 24 + 12 a step), ms by the host
+     clock and device time, peak
      memory, eval MFU; the text features of all classes (ms, finite,
      causal in fp32); the metric-loss zoo on the card against the CPU
      (fp32, B = 64, D 768 and 512, C 171, values and input gradients); a
@@ -161,7 +171,8 @@ Phases (any failure exits non-zero; nothing is caught):
 Phases 4, 6 and 15 also print MFU: the analytic model FLOPs
 (``utils/flops.py``) over the measured time and the card's bf16 peak.
 Phases 5, 7, 8, 12, 14, 15, 16, 17, 18 and 19 are the main paths: every
-launch count is zeroed just before each and read just after. Then the
+launch count is zeroed just before each and read just after (the
+epilogues' too: every timed train step launches none). Then the
 script prints the kernel table as one JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.
 Details go to chiprun_out/chip_smoke.json. It imports nothing of JAX or of
@@ -170,6 +181,7 @@ the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -308,6 +320,48 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# the CLIP tower's one-pass GEMM epilogues (ops/epilogue.py): a plain bf16
+# block at inference launches bias_cast once (q, k, v; with the attention
+# kernel only), bias_gelu once (fc) and bias_residual twice (out-proj,
+# c_proj); a train step launches none
+EPILOGUES = ("bias_cast", "bias_gelu", "bias_residual")
+
+
+def epilogue_launches(zero: bool = False) -> dict:
+    """Each epilogue kernel's launch count (``bias_*_cuda.launches``),
+    read; then zeroed where ``zero``."""
+    from signal_tpu_torch.ops import epilogue
+
+    fns = {n: getattr(epilogue, f"{n}_cuda") for n in EPILOGUES}
+    got = {n: fn.launches for n, fn in fns.items()}
+    if zero:
+        for fn in fns.values():
+            fn.launches = 0
+    return got
+
+
+def epilogues_per_block(use_flash: bool = True) -> dict:
+    """One plain bf16 block's epilogue launches at inference."""
+    return {"bias_cast": int(use_flash), "bias_gelu": 1, "bias_residual": 2}
+
+
+@contextlib.contextmanager
+def aten_chain(torch, model):
+    """The plain path's forwards with every GEMM epilogue as the ATen chain:
+    grad mode on (``models/vit._one_pass_epilogues`` takes the one-pass
+    kernels only where it is off) and no parameter requiring grad, so no
+    graph is kept."""
+    flags = [(p, p.requires_grad) for p in model.parameters()]
+    try:
+        for p, _ in flags:
+            p.requires_grad_(False)
+        with torch.enable_grad():
+            yield
+    finally:
+        for p, flag in flags:
+            p.requires_grad_(flag)
+
+
 def mfu(torch, spec, batch: int, ms: float, train: bool = False) -> dict:
     """The analytic model FLOPs of one eval forward (or train step) of
     ``batch`` over ``ms``, against the card's published bf16 peak."""
@@ -331,10 +385,14 @@ def time_train_steps(torch, step, batch, n: int = 5):
     attention_fwd_cuda.launches = attention_bwd_cuda.launches = 0
     attention_bwd_cuda.launches_long = 0
     fwd_long = attention_fwd_cuda.launches_long  # read, not zeroed: main() counts it whole
+    epilogue_launches(zero=True)
     t0 = time.perf_counter()
     losses = [step(*batch)[0] for _ in range(n)]
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / n * 1e3
+    # grad mode is on in a step: the blocks keep the ATen chain
+    if any(epilogue_launches().values()):
+        raise SystemExit(f"a train step launched the epilogue kernels: {epilogue_launches()}")
     return {"ms_per_step": ms, "samples_per_s": batch[1].shape[0] / ms * 1e3,
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "attention_fwd_launches_per_step": attention_fwd_cuda.launches / n,
@@ -623,6 +681,86 @@ def check_attention_bwd(torch, report, peaks):
     return rows
 
 
+# the epilogue kernels' shapes: (name, rows, cols, timed). The gallery's
+# (3 · 128 rows of 129 tokens: q, k, v, out-proj and c_proj at 768 columns,
+# fc at 3072), timed; ragged ones: one row, fewer column groups than a
+# block (8, 24 columns), rows and column groups across a block's edges
+EPILOGUE_SHAPES = [(n, 49536, 3072 if n == "bias_gelu" else 768, True) for n in EPILOGUES] + [
+    (n, rows, cols, False) for n in EPILOGUES for rows, cols in ((1, 8), (37, 24), (1001, 1032))]
+# values a tower's products do not draw: signed zeros (with a bias of -0.0
+# in the first columns, so that -0.0 + -0.0 stays -0.0), exp's overflow and
+# underflow in QuickGELU, subnormals, values at bf16 rounding ties
+EPILOGUE_SPECIALS = (0.0, -0.0, 1.00390625, -2.0078125, 60.0, -60.0, 95.0, -95.0, 1e-39, -1e-39,
+                     3.0, -3.0)
+
+
+def check_epilogues(torch, report, peaks):
+    """Phase 3: each epilogue kernel's wrapper (``ops/epilogue.py``)
+    against the ATen chain it replaces, to the bit (compared as int16,
+    signed zeros included), at the gallery shapes and ragged ones; at the
+    gallery shapes ms, the chain's ms, the bytes (each fp32 product and
+    the residual read once, each bf16 output written once) and the least
+    time they take at the card's memory rate. → {name: row}"""
+    from signal_tpu_torch.ops import epilogue
+    from signal_tpu_torch.ops.attention import quick_gelu
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    specials = torch.tensor(EPILOGUE_SPECIALS, device="cuda")
+    rows_out = {}
+    for name, rows, cols, timed in EPILOGUE_SHAPES:
+        n = 3 if name == "bias_cast" else 1
+        accs = [3 * torch.randn(rows, cols, device="cuda", generator=gen) for _ in range(n)]
+        bias = torch.randn(n * cols, device="cuda", generator=gen)
+        for a, b in zip(accs, bias.chunk(n)):
+            a.view(-1)[:specials.numel()] = specials[:a.numel()]
+            b[:2] = -0.0
+        x = (4 * torch.randn(rows, cols, device="cuda", generator=gen)).to(torch.bfloat16)
+        x.view(-1)[:2] = -0.0
+        if name == "bias_cast":
+            def kernel():
+                return epilogue.bias_cast_cuda(*accs, bias)
+
+            def plain():
+                return tuple((a + b.float()).to(torch.bfloat16)
+                             for a, b in zip(accs, bias.chunk(3)))
+            nbytes = 3 * rows * cols * (4 + 2)
+        elif name == "bias_gelu":
+            def kernel():
+                return (epilogue.bias_gelu_cuda(accs[0], bias),)
+
+            def plain():
+                return (quick_gelu((accs[0] + bias.float()).to(torch.bfloat16)),)
+            nbytes = rows * cols * (4 + 2)
+        else:
+            def kernel():
+                return (epilogue.bias_residual_cuda(accs[0], bias, x),)
+
+            def plain():
+                return (x + (accs[0] + bias.float()).to(torch.bfloat16),)
+            nbytes = rows * cols * (4 + 2 + 2)
+        with torch.inference_mode():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            differ = sum(int((g.view(torch.int16) != w.view(torch.int16)).sum())
+                         for g, w in zip(got, want))
+            row = {"shape": [rows, cols], "outputs": n, "bits_differ": differ,
+                   "negative_zeros": sum(int(((w == 0) & w.signbit()).sum()) for w in want)}
+            if timed:
+                bound, _ = kernel_bound(peaks, nbytes, 0, False)
+                row.update(ms=cuda_ms(torch, kernel, iters=50), plain_ms=cuda_ms(
+                    torch, plain, iters=50), bytes=nbytes, bound_ms=bound)
+                row["share_of_bound"] = bound / row["ms"]
+        key = f"{name}-{rows}x{cols}"
+        rows_out[key] = row
+        log(f"[kernel] epilogue {key}: {json.dumps(row)}")
+        if differ or not row["negative_zeros"]:
+            raise SystemExit(f"epilogue {key}: {differ} values differ from the ATen chain's "
+                             f"bits ({row['negative_zeros']} negative zeros in the chain's)")
+        del accs, bias, x, got, want
+    report["epilogues"] = rows_out
+    return rows_out
+
+
 def log_edges(kernel: str, rows) -> None:
     """One line a dtype for the tile-edge cases (each row is in
     chip_smoke.json)."""
@@ -640,7 +778,7 @@ def check_build(torch, report):
     from signal_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    libs = _build.build(["attention_fwd", "attention_bwd"])
+    libs = _build.build(["attention_fwd", "attention_bwd", "tower_epilogue"])
     report["build_s"] = time.perf_counter() - t0
     kernels = {}
     for lib in libs:
@@ -693,17 +831,26 @@ def check_slice(torch, report):
     def run(dtype: str, use_flash: bool):
         model.spec = dataclasses.replace(spec, compute_dtype=dtype, use_flash=use_flash)
         before = attention_fwd_cuda.launches
-        with torch.inference_mode():
+        epilogue_launches(zero=True)
+        # the plain path is ATen's alone: its epilogues too
+        with torch.inference_mode() if use_flash else aten_chain(torch, model):
             patches, cls, _ = sm._encode(model, imgs, cams)
             fused, masks = sim_forward(model.SIM, patches, cls, k=spec.topk,
                                        compute_dtype=model.spec.cdtype)
             feats = sm.forward_eval(model, imgs, cams)
         torch.cuda.synchronize()
         # two tower passes (_encode, forward_eval): 12 launches each on the
-        # kernel path, none on the plain-attention path
+        # kernel path, none on the plain-attention path; in bf16 the kernel
+        # path's blocks end their products in the epilogue kernels
         launched = attention_fwd_cuda.launches - before
         if launched != (2 * spec.layers if use_flash else 0):
             raise SystemExit(f"{dtype} use_flash={use_flash}: {launched} kernel launches")
+        epilogues = epilogue_launches()
+        want = {n: 2 * spec.layers * c if use_flash and dtype == "bfloat16" else 0
+                for n, c in epilogues_per_block().items()}
+        if epilogues != want:
+            raise SystemExit(f"{dtype} use_flash={use_flash}: epilogue launches {epilogues}, "
+                             f"want {want}")
         return patches, cls, torch.stack([masks[m] for m in sm.MODALITIES], 1), feats
 
     # fp32: the two paths differ only in where the scale is applied and in
@@ -750,18 +897,23 @@ def check_slice(torch, report):
     torch.cuda.synchronize()
     n = 5
     attention_fwd_cuda.launches = 0
+    epilogue_launches(zero=True)
     t0 = time.perf_counter()
     for _ in range(n):
         step()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / n * 1e3
     per_fwd = attention_fwd_cuda.launches / n
+    epilogues = {k: v / n for k, v in epilogue_launches().items()}
     out["bf16_forward"] = {"batch": B, "ms_per_batch": ms, "samples_per_s": B / ms * 1e3,
                            "attention_launches_per_forward": per_fwd,
+                           "epilogue_launches_per_forward": epilogues,
                            **mfu(torch, spec, B, ms)}
     log(f"[slice] flagship forward_eval bf16 B={B}: {json.dumps(out['bf16_forward'])}")
     if per_fwd != spec.layers:
         raise SystemExit(f"{per_fwd} attention launches per forward, want {spec.layers}")
+    if epilogues != {k: spec.layers * c for k, c in epilogues_per_block().items()}:
+        raise SystemExit(f"epilogue launches per forward {epilogues}: want 4 a block")
     report["slice"] = out
     del model
 
@@ -1484,6 +1636,8 @@ def check_serving(torch, report):
         export_s = time.perf_counter() - t0
         nodes = sum(str(n.target) == "signal_tpu_torch.attention_fwd.default"
                     for n in ep.graph.nodes)
+        epilogue_nodes = {k: sum(str(n.target) == f"signal_tpu_torch.{k}.default"
+                                 for n in ep.graph.nodes) for k in EPILOGUES}
         path = serving.save_exported(ep, str(work / name), extra_manifest={
             "config_file": "configs/RGBNT201/Signal.yml", "weight": cfg.TEST.WEIGHT,
             "image_size": list(hw), "uint8_input": True})
@@ -1491,13 +1645,18 @@ def check_serving(torch, report):
         call, manifest = serving.load_exported(path)
         shutil.copy(Path(path) / "manifest.json", logs / f"serving_{name}_manifest.json")
         artifacts[name] = call
-        out[name] = {"export_s": export_s, "kernel_nodes": nodes, "bytes": manifest["bytes"],
+        out[name] = {"export_s": export_s, "kernel_nodes": nodes,
+                     "epilogue_nodes": epilogue_nodes, "bytes": manifest["bytes"],
                      "in_avals": manifest["in_avals"], "out_avals": manifest["out_avals"],
                      "device": manifest["device"]}
         log(f"[serving] {name} artifact: {json.dumps(out[name])}")
     if out["fixed"]["kernel_nodes"] != spec.layers or out["symbolic"]["kernel_nodes"] != spec.layers:
         raise SystemExit(f"kernel operator nodes: fixed {out['fixed']['kernel_nodes']}, symbolic "
                          f"{out['symbolic']['kernel_nodes']} (want {spec.layers} each)")
+    per_batch = {k: spec.layers * c for k, c in epilogues_per_block().items()}
+    if not out["fixed"]["epilogue_nodes"] == out["symbolic"]["epilogue_nodes"] == per_batch:
+        raise SystemExit(f"epilogue operator nodes: fixed {out['fixed']['epilogue_nodes']}, "
+                         f"symbolic {out['symbolic']['epilogue_nodes']} (want {per_batch} each)")
 
     def served(name, call, n):
         """One call at batch ``n``: its launches and its agreement with
@@ -1506,14 +1665,18 @@ def check_serving(torch, report):
         call(imgs, cams)
         torch.cuda.synchronize()
         attention_fwd_cuda.launches = 0
+        epilogue_launches(zero=True)
         got = call(imgs, cams)
         torch.cuda.synchronize()
-        launches = attention_fwd_cuda.launches
-        row = dict(agree(got, eager(imgs, cams)), launches_per_batch=launches)
+        launches, epilogues = attention_fwd_cuda.launches, epilogue_launches()
+        row = dict(agree(got, eager(imgs, cams)), launches_per_batch=launches,
+                   epilogue_launches_per_batch=epilogues)
         log(f"[serving] {name} artifact at B={n} vs eager forward_eval: {json.dumps(row)}")
         if not (tuple(got.shape) == (n, spec.eval_feat_dim) and row["finite"]
-                and row["cos_min"] > 0.9999 and row["launches_per_batch"] == spec.layers):
-            raise SystemExit(f"{name} artifact at B={n}: {row} (want {spec.layers} launches)")
+                and row["cos_min"] > 0.9999 and row["launches_per_batch"] == spec.layers
+                and row["epilogue_launches_per_batch"] == per_batch):
+            raise SystemExit(f"{name} artifact at B={n}: {row} (want {spec.layers} launches, "
+                             f"epilogues {per_batch})")
         return row
 
     fixed, sym = artifacts["fixed"], artifacts["symbolic"]
@@ -1789,7 +1952,7 @@ def check_variants(torch, report):
     C, B_eval = 171, 128
     gen = torch.Generator(device="cuda").manual_seed(14)
     driven = {"attention_fwd": 0, "attention_fwd_long": 0, "attention_bwd": 0,
-              "attention_bwd_long": 0}
+              "attention_bwd_long": 0, **dict.fromkeys(EPILOGUES, 0)}
     long_phase = attention_fwd_cuda.launches_long
     out = {}
     for name, opts in VARIANTS:
@@ -1821,7 +1984,8 @@ def check_variants(torch, report):
         def features(dtype, use_flash):
             model.spec = dataclasses.replace(spec, compute_dtype=dtype, use_flash=use_flash)
             before = attention_fwd_cuda.launches
-            with torch.inference_mode():
+            # the plain path is ATen's alone: its epilogues too
+            with torch.inference_mode() if use_flash else aten_chain(torch, model):
                 patches, cls, _ = sm._encode(model, imgs_e, cams_e)
                 feats = sm.forward_eval(model, imgs_e, cams_e)
             torch.cuda.synchronize()
@@ -1900,6 +2064,7 @@ def check_variants(torch, report):
         torch.cuda.synchronize()
         attention_fwd_cuda.launches = attention_bwd_cuda.launches = 0
         long0 = attention_fwd_cuda.launches_long
+        epilogue_launches(zero=True)
         t1 = time.perf_counter()
         for _ in range(3):
             evaluate()
@@ -1907,6 +2072,10 @@ def check_variants(torch, report):
         row["eval_ms_per_batch"] = (time.perf_counter() - t1) / 3 * 1e3
         row["eval_launches_per_forward"] = attention_fwd_cuda.launches / 3
         row["eval_long_launches_per_forward"] = (attention_fwd_cuda.launches_long - long0) / 3
+        row["eval_epilogue_launches_per_forward"] = {
+            k: v / 3 for k, v in epilogue_launches().items()}
+        for k, v in epilogue_launches().items():
+            driven[k] += v
         driven["attention_fwd"] += attention_fwd_cuda.launches
         driven["attention_fwd_long"] += attention_fwd_cuda.launches_long - long0
         optimizer = make_optimizer(model, cfg)
@@ -1938,6 +2107,12 @@ def check_variants(torch, report):
         if got != (n, 2 * n, n):
             raise SystemExit(f"{name}: launches (eval, train fwd, train bwd) {got}, "
                              f"want {(n, 2 * n, n)}")
+        # an adapter or MoE block adds terms before the cast: the ATen chain
+        epilogues = {k: 0 if spec.adapter or spec.moe_experts else n * c
+                     for k, c in epilogues_per_block().items()}
+        if row["eval_epilogue_launches_per_forward"] != epilogues:
+            raise SystemExit(f"{name}: epilogue launches per eval forward "
+                             f"{row['eval_epilogue_launches_per_forward']}, want {epilogues}")
         long_want = n if tokens > 160 else 0   # the backward's long route past 160 tokens
         if row["train_bwd_long_launches_per_step"] != long_want:
             raise SystemExit(f"{name}: {row['train_bwd_long_launches_per_step']} long-route "
@@ -2355,7 +2530,8 @@ def check_clipreid(torch, report):
         model.spec = dataclasses.replace(spec, compute_dtype=dtype, use_flash=use_flash,
                                          neck_feat=neck)
         before = fa.attention_fwd_cuda.launches
-        with torch.inference_mode(), true_fp32():
+        # the plain path is ATen's alone: its epilogues too
+        with torch.inference_mode() if use_flash else aten_chain(torch, model), true_fp32():
             f = cr.clipreid_forward_eval(model, imgs_e, cams_e)
         torch.cuda.synchronize()
         launched = fa.attention_fwd_cuda.launches - before
@@ -2490,25 +2666,31 @@ def check_clipreid(torch, report):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fa.attention_fwd_cuda.launches = 0
+        epilogue_launches(zero=True)
         t0 = time.perf_counter()
         for _ in range(3):
             evaluate(neck)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / 3 * 1e3
         per_fwd = fa.attention_fwd_cuda.launches / 3
+        epilogues = {k: v / 3 for k, v in epilogue_launches().items()}
         driven["attention_fwd"] += fa.attention_fwd_cuda.launches
         flops = cost_analysis(evaluate, neck)["flops"]
         busy = device_busy_ms(torch, lambda n: (evaluate(n),), (neck,), n=2)
         out[f"eval_{neck}"] = {
             "ms_per_batch": ms, "samples_per_s": B_eval / ms * 1e3, "device_busy_ms": busy,
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "launches_per_forward": per_fwd, "counted_tflop": flops / 1e12,
+            "launches_per_forward": per_fwd, "epilogue_launches_per_forward": epilogues,
+            "counted_tflop": flops / 1e12,
             "attention_kernel_tflop": attn_flops / 1e12,
             "mfu_host": (flops + attn_flops) / (ms / 1e3) / peak_flops,
             "mfu_device": (flops + attn_flops) / (busy / 1e3) / peak_flops}
         if per_fwd != spec.layers:
             raise SystemExit(f"CLIP-ReID eval ({neck}): {per_fwd} launches a forward, "
                              f"want {spec.layers}")
+        if epilogues != {k: spec.layers * c for k, c in epilogues_per_block().items()}:
+            raise SystemExit(f"CLIP-ReID eval ({neck}): epilogue launches a forward "
+                             f"{epilogues}, want 4 a block")
     model.spec = spec
     optimizer = torch.optim.Adam([p for _, p in params], lr=5e-6, weight_decay=1e-4)
     text = text_all().clone()              # once, without grad (CLIP-ReID's stage 2)
@@ -3559,6 +3741,7 @@ def run_main_path(torch, report):
 
     out_dir = REPO / "chiprun_out" / "chip_smoke"
     attention_fwd_cuda.launches = 0
+    epilogue_launches(zero=True)
     t0 = time.perf_counter()
     # the synthetic split's 16 query + gallery samples as two requests of 8
     cmc, mAP = test_main(["--config_file", str(REPO / "configs/synthetic/smoke.yml"),
@@ -3566,13 +3749,21 @@ def run_main_path(torch, report):
                           "OUTPUT_DIR", str(out_dir)])
     torch.cuda.synchronize()
     launches = attention_fwd_cuda.launches
+    epilogues = epilogue_launches()
     e2e = {"mAP": float(mAP), "rank1": float(cmc[0]), "rank5": float(cmc[4]),
-           "seconds": time.perf_counter() - t0, "attention_launches": launches}
+           "seconds": time.perf_counter() - t0, "attention_launches": launches,
+           "epilogue_launches": epilogues}
     log(f"[e2e] test_main synthetic: {json.dumps(e2e)}")
     if not (math.isfinite(e2e["mAP"]) and all(math.isfinite(float(c)) for c in cmc)):
         raise SystemExit(f"non-finite metrics: {e2e}")
     if launches == 0:
         raise SystemExit("the main path launched no attention kernel")
+    # each bf16 block at inference: one q, k, v launch, one fc, two residual
+    if not (launches == epilogues["bias_cast"] == epilogues["bias_gelu"]
+            == epilogues["bias_residual"] // 2):
+        raise SystemExit(f"the main path's epilogue launches {epilogues}, attention {launches}: "
+                         "want one bias_cast and bias_gelu and two bias_residual an attention "
+                         "launch")
     report["e2e"] = e2e
     return launches
 
@@ -3606,6 +3797,7 @@ def main() -> int:
     peaks = peaks_for(name)
     rows = check_attention(torch, report, peaks)
     bwd = check_attention_bwd(torch, report, peaks)
+    epi = check_epilogues(torch, report, peaks)
     # from here on only phase 14's 384×128 input at STRIDE_SIZE 12 runs past
     # 256 keys: the forward's long route is reached by its launches alone
     # (counted here, in phase 14 and in each rank)
@@ -3822,7 +4014,30 @@ def main() -> int:
         "ptxas": {short: report["build"][short] for short in report["build"]
                   if "fwd_long_kernel" in short},
     }
-    kernels = [fwd, fwd_long_entry, bwd_entry, long_entry, fp32_fwd, fp32_bwd]
+    # the tower's one-pass GEMM epilogues (no TPU kernel: XLA fuses these ops
+    # on the TPU), each at its gallery shape; launches on the driven eval
+    # paths (a train step launches none: time_train_steps holds it)
+    epi_entry = {
+        "name": "tower_epilogue", "route": "cuda",
+        "source": "signal_tpu_torch/csrc/tower_epilogue.cu", "replaces": None,
+        "kernels": [f"tower_{n}_elementwise_kernel" for n in EPILOGUES],
+        "launches": report["e2e"]["epilogue_launches"],
+        "launches_per_flagship_forward": report["slice"]["bf16_forward"][
+            "epilogue_launches_per_forward"],
+        "launches_variants": {k: variant_launches[k] for k in EPILOGUES},
+        "launches_serving_per_batch": report["serving"]["fixed"]["epilogue_launches_per_batch"],
+        "launches_clipreid_per_forward": report["clipreid"]["eval_before"][
+            "epilogue_launches_per_forward"],
+        "cases": len(epi), "bits_differ": sum(r["bits_differ"] for r in epi.values()),
+        "max_abs_err": 0.0,
+        "ptxas": {short: report["build"][short] for short in report["build"]
+                  if "elementwise_kernel" in short}}
+    for key, r in epi.items():
+        if "ms" in r:
+            tag = key.split("-")[0]
+            for k in ("ms", "plain_ms", "bound_ms", "share_of_bound", "bytes", "shape"):
+                epi_entry[f"{k}_{tag}"] = r[k]
+    kernels = [fwd, fwd_long_entry, bwd_entry, long_entry, fp32_fwd, fp32_bwd, epi_entry]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     out = REPO / "chiprun_out"

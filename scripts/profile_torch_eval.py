@@ -14,7 +14,8 @@ feeds it B random packed uint8 images with random cameras, and reports:
 * a ``torch.profiler`` window of ``--iters`` forwards: device time by
   kernel name and by kind (the attention kernel, GEMMs, LayerNorm,
   elementwise, ...), the device's busy time over the window and its idle
-  share;
+  share, and the launches a batch of the attention kernel and of each of
+  the tower's one-pass epilogues (``ops/epilogue.py``);
 * the peak device memory of one forward.
 
 Prints one JSON object as its last line and writes it to
@@ -73,6 +74,7 @@ def main() -> int:
     from signal_tpu_torch.data.augment import normalize_images
     from signal_tpu_torch.models import signal_model as sm
     from signal_tpu_torch.models.sim import sim_forward
+    from signal_tpu_torch.ops import epilogue
     from signal_tpu_torch.ops.flash_attention import attention_fwd_cuda
     from signal_tpu_torch.utils.flops import peak_flops_per_chip, signal_analytic_flops
 
@@ -122,6 +124,10 @@ def main() -> int:
     # the profiler's view: kernels by device time, busy and idle share
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     attention_fwd_cuda.launches = 0
+    epilogues = {n: getattr(epilogue, f"{n}_cuda") for n in
+                 ("bias_cast", "bias_gelu", "bias_residual")}
+    for fn in epilogues.values():
+        fn.launches = 0
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(args.iters):
@@ -129,6 +135,7 @@ def main() -> int:
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     launches = attention_fwd_cuda.launches
+    epilogue_launches = {n: fn.launches / args.iters for n, fn in epilogues.items()}
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     by_name = sorted(((e.key, e.self_device_time_total / 1e3 / args.iters, e.count // args.iters)
                       for e in kernels), key=lambda r: -r[1])
@@ -151,6 +158,7 @@ def main() -> int:
         "device_idle_share": (1.0 - busy_ms * args.iters / window_ms
                               if busy_ms else "not measured (profiler saw no device time)"),
         "attention_launches_per_batch": launches / args.iters,
+        "epilogue_launches_per_batch": epilogue_launches,
         "ms_by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
         "top_kernels": [{"name": n[:120], "ms": ms, "launches": c} for n, ms, c in by_name[:15]],
         "peak_memory_gib": peak_gib,
@@ -160,8 +168,9 @@ def main() -> int:
     report["mfu"] = report["analytic_tflop_per_batch"] / (ms_batch / 1e3) / \
         (peak_flops_per_chip(torch.cuda.get_device_name(0)) / 1e12)
     for key in ("ms_per_batch", "samples_per_s", "stage_ms", "device_busy_ms_per_batch",
-                "device_idle_share", "ms_by_kind", "peak_memory_gib", "analytic_tflop_per_batch",
-                "mfu"):
+                "device_idle_share", "attention_launches_per_batch",
+                "epilogue_launches_per_batch", "ms_by_kind", "peak_memory_gib",
+                "analytic_tflop_per_batch", "mfu"):
         print(f"[profile] {key}: {json.dumps(report[key])}")
     for row in report["top_kernels"]:
         print(f"[kernel] {row['ms']:.3f} ms x{row['launches']} {row['name']}")

@@ -54,6 +54,7 @@ from torch import nn
 from signal_tpu_torch.models.lora import TARGETS
 from signal_tpu_torch.ops.attention import (
     MultiheadAttentionParams,
+    attention,
     enter_model,
     layer_norm,
     leave_model,
@@ -65,6 +66,8 @@ from signal_tpu_torch.ops.attention import (
     true_fp32,
     trunc_normal_,
 )
+from signal_tpu_torch.ops.epilogue import bias_cast, bias_gelu, bias_residual
+from signal_tpu_torch.ops.flash_attention import flash_attention
 from signal_tpu_torch.ops.moe import MoE, moe_dispatch, moe_hidden, moe_mlp, moe_route
 from signal_tpu_torch.parallel.mesh import copy_to_model, gather_tokens, split_tokens, \
     tensor_parallel
@@ -289,6 +292,41 @@ def _moe_out(blk: ResidualAttentionBlock, x: torch.Tensor, *, compute_dtype, moe
     return x + leave_model(y, None, blk.mesh, seq).to(x.dtype), aux
 
 
+def _one_pass_epilogues(blk: ResidualAttentionBlock, x: torch.Tensor, compute_dtype,
+                        seq: int | None) -> bool:
+    """Whether a plain block's GEMM epilogues run as one pass each
+    (:func:`_block_one_pass`): with grad mode off (the operators have no
+    backward), in bf16, on a block with no MoE and no adapter (which add
+    terms before the cast), without tensor or sequence parallelism (which
+    add the biases after a collective)."""
+    return (not torch.is_grad_enabled() and compute_dtype == torch.bfloat16
+            and x.dtype == torch.bfloat16 and not blk.is_moe and blk.adapter_ffn is None
+            and seq is None and not tensor_parallel(blk.mesh))
+
+
+def _block_one_pass(blk: ResidualAttentionBlock, x: torch.Tensor, *, num_heads: int,
+                    use_flash: bool) -> torch.Tensor:
+    """:func:`_block`'s plain path with each GEMM's epilogue in one pass
+    (``ops/epilogue.py``): the same products, rounding points and bits.
+    With ``use_flash``, q, k and v come out of one ``bias_cast`` in bf16,
+    as the kernel reads them (the eager core scales q in fp32 first, so it
+    keeps its own q, k, v); the out-projection and c_proj end in
+    ``bias_residual``, fc in ``bias_gelu``."""
+    attn, mlp = blk.attn, blk.mlp
+    h = layer_norm(blk.ln_1, x)
+    if use_flash:
+        # no name holds the products or q, k, v: each is freed once read
+        qkv = (linear(w, None, h) for w in attn.in_proj_weight.chunk(3, dim=0))
+        out = flash_attention(*bias_cast(*qkv, attn.in_proj_bias), num_heads=num_heads)
+        out = linear(attn.out_proj.weight, None, out)
+    else:
+        out = attention(attn.in_proj_weight, attn.in_proj_bias, attn.out_proj.weight, None, h,
+                        num_heads=num_heads)
+    x = bias_residual(out, attn.out_proj.bias, x)
+    hidden = bias_gelu(linear(mlp.c_fc.weight, None, layer_norm(blk.ln_2, x)), mlp.c_fc.bias)
+    return bias_residual(linear(mlp.c_proj.weight, None, hidden), mlp.c_proj.bias, x)
+
+
 def _block(blk: ResidualAttentionBlock, x: torch.Tensor, *, num_heads: int,
            compute_dtype, use_flash: bool, policy: str | None = None,
            moe_topk: int = 1, moe_capacity: float = 1.25, seq: int | None = None):
@@ -297,12 +335,16 @@ def _block(blk: ResidualAttentionBlock, x: torch.Tensor, *, num_heads: int,
     inputs are what the policy keeps: the block input and ``attn_out`` (and
     ``mlp_hidden``; on an MoE block ``moe_dispatch``, and ``moe_hidden``
     under 'attn_mlp'); None runs it plainly. ``seq``: the tower's token
-    count under sequence parallelism (``x`` holds this rank's tokens)."""
+    count under sequence parallelism (``x`` holds this rank's tokens).
+    At inference in bf16 a plain block runs :func:`_block_one_pass`
+    (:func:`_one_pass_epilogues` says when)."""
     attn = functools.partial(_attn_branch, blk, num_heads=num_heads,
                              compute_dtype=compute_dtype, use_flash=use_flash, seq=seq)
     moe = dict(compute_dtype=compute_dtype, moe_topk=moe_topk, moe_capacity=moe_capacity,
                seq=seq)
     if policy is None:
+        if _one_pass_epilogues(blk, x, compute_dtype, seq):
+            return _block_one_pass(blk, x, num_heads=num_heads, use_flash=use_flash)
         x = x + attn(x)
         if blk.is_moe:
             return _moe_out(blk, x, **moe)

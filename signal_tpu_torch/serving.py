@@ -25,9 +25,11 @@ differs by device (``ops/attention.py``: the card's fp32-output product,
 widened operands on the CPU). JAX's multi-platform ``platforms=`` has no
 counterpart, and asking for more than one device raises. An artifact that
 holds the kernel loads only where ``signal_tpu_torch`` is installed
-(``load_exported`` imports the operator's module); the exported graph also
-does not hold the process-wide TF32 flags, so the loaded callable runs
-under ``true_fp32()``, as the eager path does where it needs full fp32.
+(``load_exported`` imports the operators' modules: an artifact exported
+in bf16 also holds the tower's one-pass epilogues, ``ops/epilogue.py``);
+the exported graph also does not hold the process-wide TF32 flags, so
+the loaded callable runs under ``true_fp32()``, as the eager path does
+where it needs full fp32.
 
 ``export_bridged``/``load_exported_bridged`` have no counterpart: they
 export a zoo CNN lowered to JAX by ``torch_bridge``, while the port's
@@ -80,7 +82,10 @@ def export_eval(model: nn.Module, spec, *, image_size: Tuple[int, int],
     ``spec``. ``batch=None`` → a symbolic batch dimension; an int → fixed
     shapes. The graph holds the attention kernel's operator when
     ``spec.use_flash`` and ``device`` is a CUDA device, else the eager
-    core."""
+    core. In bf16 it also holds the tower's one-pass GEMM epilogues
+    (``ops/epilogue.py``: ``signal_tpu_torch::bias_*``) on every device,
+    the CPU and ``use_flash=False`` included, so such an artifact loads
+    only where ``signal_tpu_torch`` is installed."""
     targets = [device] if isinstance(device, (str, torch.device)) else list(device)
     if len(targets) != 1:
         raise ValueError(f"an artifact serves the one device it was traced on, got {targets}")
@@ -140,6 +145,7 @@ def save_exported(ep: torch.export.ExportedProgram, path: str, *,
 def load_exported(path: str):
     """Load an artifact directory → (callable, manifest). The callable
     takes (imgs dict, camids) like the exported module."""
+    import signal_tpu_torch.ops.epilogue  # noqa: F401  registers the epilogues' operators
     import signal_tpu_torch.ops.flash_attention  # noqa: F401  registers the kernel's operator
     from signal_tpu_torch.ops.attention import true_fp32
 

@@ -641,3 +641,163 @@ def test_spans_land_on_the_cuda_timelines_clock(cuda_device, tmp_path):
             for e in syncs]
     assert len(inside) == 1, (sync["tid"], sync["dur"], seen)
     assert {e["tid"] for e in calls} == {inside[0]["tid"]}
+
+
+def _epilogue_inputs(device, rows, cols, n):
+    """fp32 products (n of them) with the values a tower writes and a few
+    specials at the front (signed zeros, exp's overflow and underflow in
+    QuickGELU, subnormals), their fp32 bias, and a bf16 residual stream."""
+    gen = torch.Generator(device=device).manual_seed(rows * 7 + cols)
+    accs = [3 * torch.randn(rows, cols, device=device, generator=gen) for _ in range(n)]
+    specials = torch.tensor([0.0, -0.0, 1.00390625, -2.0078125, 60.0, -60.0, 95.0, -95.0,
+                             1e-39, -1e-39, 3.0, -3.0], device=device)
+    for a in accs:
+        a.view(-1)[:specials.numel()] = specials[:a.numel()]
+    bias = torch.randn(n * cols, device=device, generator=gen)
+    x = (4 * torch.randn(rows, cols, device=device, generator=gen)).to(torch.bfloat16)
+    return accs, bias, x
+
+
+def _bits(t):
+    return t.view(torch.int16)
+
+
+# each epilogue at its gallery shape (3 · 128 rows of 129 tokens: q, k, v,
+# out-proj and c_proj at 768 columns, fc at 3072) and at ragged ones: one
+# row, a width of 8 or 24 (fewer column groups than a block), rows and
+# column groups across a block's edges
+_EPILOGUE_SHAPES = [("bias_cast", 49536, 768), ("bias_gelu", 49536, 3072),
+                    ("bias_residual", 49536, 768)] + [
+    (name, rows, cols) for name in ("bias_cast", "bias_gelu", "bias_residual")
+    for rows, cols in ((1, 8), (37, 24), (1001, 1032))]
+
+
+@pytest.mark.parametrize("name,rows,cols", _EPILOGUE_SHAPES)
+def test_epilogue_kernels_match_the_aten_chain(cuda_device, name, rows, cols):
+    """Each epilogue kernel against the ATen chain it replaces, on the card,
+    to the bit (signed zeros included), and its launch counted."""
+    from signal_tpu_torch.ops import epilogue
+
+    n = 3 if name == "bias_cast" else 1
+    accs, bias, x = _epilogue_inputs(cuda_device, rows, cols, n)
+    launcher = getattr(epilogue, f"{name}_cuda")
+    before = launcher.launches
+    with torch.inference_mode():
+        if name == "bias_cast":
+            got = torch.ops.signal_tpu_torch.bias_cast(*accs, bias)
+            want = [(a + b.float()).to(torch.bfloat16) for a, b in zip(accs, bias.chunk(3))]
+        elif name == "bias_gelu":
+            got = [torch.ops.signal_tpu_torch.bias_gelu(accs[0], bias)]
+            from signal_tpu_torch.ops.attention import quick_gelu
+
+            want = [quick_gelu((accs[0] + bias).to(torch.bfloat16))]
+        else:
+            got = [torch.ops.signal_tpu_torch.bias_residual(accs[0], bias, x)]
+            want = [x + (accs[0] + bias).to(torch.bfloat16)]
+    torch.cuda.synchronize()
+    assert launcher.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.is_contiguous() and g.data_ptr() % 16 == 0
+        bad = (_bits(g) != _bits(w)).nonzero()
+        assert bad.numel() == 0, (len(bad), bad[:4].tolist())
+
+
+def test_bias_gelu_matches_the_aten_chain_on_every_bf16_value(cuda_device):
+    """QuickGELU's input is a bf16 value, so bias_gelu's arithmetic (its
+    reciprocal's fast route included) meets at most 2^16 cases: every bf16
+    bit pattern but the NaNs, each once, to the bit."""
+    from signal_tpu_torch.ops.attention import quick_gelu
+
+    values = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32, device=cuda_device)
+    values = values.to(torch.int16).view(torch.bfloat16)
+    values = values[~values.isnan()].float()
+    acc = torch.cat([values, values.new_zeros(-values.numel() % 1024)]).reshape(-1, 1024)
+    bias = torch.zeros(1024, device=cuda_device)
+    with torch.inference_mode():
+        got = torch.ops.signal_tpu_torch.bias_gelu(acc, bias)
+        want = quick_gelu((acc + bias).to(torch.bfloat16))
+    torch.cuda.synchronize()
+    bad = (_bits(got) != _bits(want)).nonzero()
+    assert bad.numel() == 0, (len(bad), [acc[i, j].item() for i, j in bad[:4].tolist()])
+
+
+def test_epilogue_kernels_refuse_what_they_cannot_take(cuda_device):
+    from signal_tpu_torch.ops import epilogue
+
+    acc = torch.zeros(4, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        epilogue.bias_gelu_cuda(torch.zeros(4, 12, device=cuda_device),
+                                torch.zeros(12, device=cuda_device))
+    with pytest.raises(ValueError, match="fp32 products"):
+        epilogue.bias_gelu_cuda(acc.to(torch.bfloat16), torch.zeros(16, device=cuda_device))
+    with pytest.raises(ValueError, match="bias"):
+        epilogue.bias_cast_cuda(acc, acc, acc, torch.zeros(16, device=cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        epilogue.bias_residual_cuda(acc, torch.zeros(16, device=cuda_device),
+                                    torch.zeros(16, 4, device=cuda_device,
+                                                dtype=torch.bfloat16).t())
+    with pytest.raises(ValueError, match="contiguous"):
+        epilogue.bias_gelu_cuda(acc, torch.zeros(32, device=cuda_device)[::2])
+    with pytest.raises(RuntimeError, match="no backward"):
+        epilogue.bias_gelu_cuda(acc, torch.zeros(16, device=cuda_device, requires_grad=True))
+
+
+def _epilogue_launches():
+    from signal_tpu_torch.ops import epilogue
+
+    return (epilogue.bias_cast_cuda.launches + epilogue.bias_gelu_cuda.launches
+            + epilogue.bias_residual_cuda.launches)
+
+
+def test_eval_forward_launches_the_epilogues_and_keeps_the_bits(cuda_device):
+    """The flagship tower's eval forward (bf16, 12 blocks, the attention
+    kernel) launches the epilogue kernels 4 times a block, 48 in all, and
+    gives the bits of the same forward under grad mode (the ATen chain),
+    which launches none."""
+    from signal_tpu_torch.models import signal_model as sm
+
+    spec = sm.ModelSpec(num_classes=171, camera_num=4, use_flash=True)
+    model = sm.init_signal(spec, seed=0).to(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    imgs = torch.randn(2, 3, 3, 256, 128, device=cuda_device, generator=gen)
+    cams = torch.tensor([0, 3], device=cuda_device)
+    before = _epilogue_launches()
+    with torch.inference_mode():
+        got = sm.forward_eval(model, imgs, cams)
+    torch.cuda.synchronize()
+    assert _epilogue_launches() - before == 4 * spec.layers == 48
+    before = _epilogue_launches()
+    with torch.enable_grad():
+        want = sm.forward_eval(model, imgs, cams)
+    torch.cuda.synchronize()
+    assert _epilogue_launches() == before and want.requires_grad
+    assert torch.equal(got, want.detach())
+
+
+def test_train_step_launches_no_epilogue(cuda_device):
+    """A bf16 train step (grad mode on, remat) keeps the ATen chain: no
+    epilogue launch, the attention kernels launched."""
+    from signal_tpu_torch.config import load_config
+    from signal_tpu_torch.engine.train import make_train_step
+    from signal_tpu_torch.models import signal_model as sm
+    from signal_tpu_torch.ops.flash_attention import attention_bwd_cuda
+    from signal_tpu_torch.solver import make_optimizer, schedule_coeffs, set_lr
+
+    spec = sm.ModelSpec(num_classes=5, camera_num=3, width=128, layers=2, num_heads=4,
+                        feat_dim=64, h=4, w=4, topk=3, use_flash=True)
+    cfg = load_config("configs/synthetic/smoke.yml", [
+        "DATALOADER.NUM_INSTANCE", "2", "INPUT.SIZE_TRAIN", "[64, 64]", "MODEL.TOPK", "3"])
+    model = sm.init_signal(spec, seed=0).to(cuda_device)
+    optimizer = make_optimizer(model, cfg)
+    set_lr(optimizer, *schedule_coeffs(cfg, 1))
+    step = make_train_step(model, cfg, 5, optimizer)
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    x = torch.randint(0, 256, (8, 3, 3, 64, 64), dtype=torch.uint8, device=cuda_device,
+                      generator=gen)
+    pids = torch.tensor([0, 0, 3, 3, 1, 1, 4, 4], device=cuda_device)
+    cams = torch.randint(0, 3, (8,), device=cuda_device, generator=gen)
+    before, bwd = _epilogue_launches(), attention_bwd_cuda.launches
+    loss, _ = step(x, pids, cams)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert _epilogue_launches() == before and attention_bwd_cuda.launches == bwd + spec.layers
