@@ -106,10 +106,12 @@ Phases (any failure exits non-zero; nothing is caught):
      ``forward_eval`` at B = 128 and one train step at B = 64 (bf16, device
      augment, Adam, DROP_PATH 0.1), where the blocks take the kernels their
      kernel path against the plain path as phases 4 and 6 (fp32 at DROP_PATH
-     0); launches per eval forward, train forward and backward asserted
-     (12 / 24 / 12, the long route's 12 at 211 tokens, 0 for vit_small's qk
-     scale, T2T and the CNNs, as in JAX), ms by the host clock and device
-     time, peak memory, MFU, and the CNN trunks' running statistics (moved
+     0; T2T's tokens-to-token Linear weights at 5× σ; a bf16 tower gradient
+     under the cosine rule held within 4× its own bf16 rounding instead);
+     launches per eval forward, train forward and backward asserted (12 /
+     24 / 12, T2T's 14 / 28 / 14, the long route's 12 at 211 tokens, 0 for
+     vit_small's qk scale and the CNNs, as in JAX), ms by the host clock and
+     device time, peak memory, MFU, and the CNN trunks' running statistics (moved
      by the step, not by eval); then ``train_main`` and ``test_main`` on
      the synthetic config with vit_base_patch16_224 and resnet50;
  16. CLIP-ReID at full width (random weights from SOLVER.SEED, bf16, the
@@ -186,6 +188,7 @@ import dataclasses
 import json
 import math
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -971,16 +974,15 @@ class Paths:
         return loss.item(), {n_: (torch.zeros_like(p) if g is None else g)
                              for (n_, p), g in zip(self.params, grads)}
 
-    def tower_grads(self, use_flash: bool):
-        """Gradients of a smooth loss of the bf16 ViT tower (remat on): the
-        mean square of its patch and class tokens."""
+    def tower_grads(self, use_flash: bool, dtype: str = "bfloat16"):
+        """Gradients of a smooth loss of the ViT tower in ``dtype`` (remat
+        on): the mean square of its patch and class tokens."""
         from signal_tpu_torch.models import signal_model as sm
         from signal_tpu_torch.ops.attention import true_fp32
 
         model = self.model
         model.load_state_dict(self.state0)
-        model.spec = dataclasses.replace(self.spec, compute_dtype="bfloat16",
-                                         use_flash=use_flash)
+        model.spec = dataclasses.replace(self.spec, compute_dtype=dtype, use_flash=use_flash)
         with true_fp32():
             patches, cls, _ = sm._encode(model, self.imgs, self.cams, remat=self.spec.remat)
             loss = patches.float().square().mean() + cls.float().square().mean()
@@ -2134,17 +2136,24 @@ def check_variants(torch, report):
     return driven
 
 
+# phase 15's bf16 tower gradients: a leaf under the cosine rule passes if
+# its kernel-vs-plain gap is within this × its own bf16 rounding (the plain
+# path's bf16 gradient against its fp32 one)
+ROUNDING_FACTOR = 4.0
+
+
 # the other backbones at full width: (name, overrides of
 # configs/RGBNT201/Signal.yml, forward / backward kernel launches per eval
-# forward and train step: 12 / 24 / 12 where the blocks take the kernel, 0
-# where JAX's do not (vit_small's qk scale, T2T, the CNNs))
+# forward and train step: 12 / 24 / 12 where the blocks take the kernel
+# (14 / 28 / 14 for T2T's body), 0 where they do not (vit_small's qk
+# scale, the CNNs))
 BACKBONES = [
     ("vit_base", ["MODEL.TRANSFORMER_TYPE", "vit_base_patch16_224"], True),
     ("vit_base_stride12", ["MODEL.TRANSFORMER_TYPE", "vit_base_patch16_224",
                            "MODEL.STRIDE_SIZE", "[12, 12]"], True),
     ("deit_small", ["MODEL.TRANSFORMER_TYPE", "deit_small_patch16_224"], True),
     ("vit_small", ["MODEL.TRANSFORMER_TYPE", "vit_small_patch16_224"], False),
-    ("t2t_vit_t_14", ["MODEL.TRANSFORMER_TYPE", "t2t_vit_t_14"], False),
+    ("t2t_vit_t_14", ["MODEL.TRANSFORMER_TYPE", "t2t_vit_t_14"], True),
     ("resnet50", ["MODEL.TRANSFORMER_TYPE", "resnet50"], False),
     ("osnet_x1_0", ["MODEL.TRANSFORMER_TYPE", "osnet_x1_0"], False),
 ]
@@ -2190,6 +2199,15 @@ def check_backbones(torch, report):
             raise SystemExit(f"{name}: {spec}")
         tokens = spec.h * spec.w + 1
         model = sm.init_signal(spec, seed=cfg.SOLVER.SEED).to("cuda")
+        if spec.backbone == "t2t":
+            # at σ 0.02 the tokens-to-token module's output is a tenth of the
+            # sinusoid table's, every input maps to nearly one feature, and
+            # the module's gradients are rounding noise; 5× its Linear
+            # weights, as the card tests take T2T's
+            with torch.no_grad():
+                for m in model.base.tokens_to_token.modules():
+                    if isinstance(m, torch.nn.Linear):
+                        m.weight.mul_(5.0)
         H, W = cfg.INPUT.SIZE_TRAIN
         u8e = torch.randint(0, 256, (B_eval, 3, 3, H, W), dtype=torch.uint8, device="cuda",
                             generator=gen)
@@ -2256,16 +2274,36 @@ def check_backbones(torch, report):
             del g_k, g_b
             t_k, t_p = paths.tower_grads(True), paths.tower_grads(False)
             tower = cosines(torch, t_k, t_p, [n_ for n_ in t_p if n_ not in zero])
+            # a leaf whose gradient is a sum over tokens that cancels (a
+            # LayerNorm's scale) is bf16 rounding on either path: held by its
+            # gap against that rounding instead (T2T's 18 such leaves at 5× σ:
+            # cosines 0.13-0.81 at 0.025-0.062 of the median leaf's norm,
+            # gaps 0.59-1.18 of their rounding; no other backbone has one)
+            rounding = {}
+            if min(tower.values()) <= 0.99:
+                t_f = paths.tower_grads(False, "float32")
+                med = statistics.median(g.norm().item() for g in t_p.values())
+                rounding = {n_: {"cos": c, "norm_over_median": t_p[n_].norm().item() / med,
+                                 "gap_over_rounding": ((t_k[n_] - t_p[n_]).norm() /
+                                                       (t_p[n_] - t_f[n_]).norm()).item()}
+                            for n_, c in tower.items() if c <= 0.99}
+                del t_f
             del t_k, t_p
             lb, lt = min(bwd_cos, key=bwd_cos.get), min(tower, key=tower.get)
             row.update(train_bf16_loss=loss_k, bwd_kernel_vs_plain_grad_cos_min=bwd_cos[lb],
                        bwd_kernel_vs_plain_grad_cos_min_tensor=lb, tower_grad_cos_min=tower[lt],
-                       tower_grad_cos_min_tensor=lt)
-            if not (math.isfinite(loss_k) and bwd_cos[lb] > 0.99 and tower[lt] > 0.99):
+                       tower_grad_cos_min_tensor=lt, tower_grad_by_rounding=rounding)
+            if not (math.isfinite(loss_k) and bwd_cos[lb] > 0.99 and all(
+                    r["gap_over_rounding"] <= ROUNDING_FACTOR for r in rounding.values())):
                 raise SystemExit(f"{name}: bf16 kernels disagree with their plain versions: "
                                  f"{row}")
             model.load_state_dict(paths.state0)
             del paths, imgs
+            # the comparisons' fp32 tensors (T2T's [192, 2048, 2048] ones)
+            # leave the allocator's cache cut to their sizes; the timed steps
+            # below then paid cudaMalloc and cudaFree (T2T: 466 host ms a
+            # step against 114 device ms; 160-221 in a process of its own)
+            torch.cuda.empty_cache()
         model.spec = spec
 
         def evaluate():

@@ -247,10 +247,10 @@ class ModelSpec:
     @property
     def attention_kernel(self) -> bool:
         """Whether the backbone's blocks run the attention kernel: the CLIP
-        and ImageNet towers under MODEL.USE_PALLAS_ATTENTION, but not with
-        a qk-scale override (vit_small), as in JAX; T2T's blocks and the
-        CNNs never."""
-        return self.use_flash and self.backbone in ("clip", "imagenet") \
+        and ImageNet towers and T2T's body under MODEL.USE_PALLAS_ATTENTION,
+        but not with a qk-scale override (vit_small), as in JAX; the CNNs
+        never. (The JAX package runs T2T's body on its eager core.)"""
+        return self.use_flash and self.backbone in ("clip", "imagenet", "t2t") \
             and self.qk_scale is None
 
     @property
@@ -419,7 +419,7 @@ def _encode(model: Signal, imgs: torch.Tensor, cam_label, remat: bool = False,
     elif spec.backbone == "t2t":
         patches, cls = t2t_forward(model.base, x, cams, sie_xishu=spec.sie_coe,
                                    num_heads=spec.num_heads, compute_dtype=spec.cdtype,
-                                   remat=remat)
+                                   use_flash=spec.use_flash, remat=remat)
     else:
         views = view_label.repeat_interleave(3) if view_label is not None else None
         patches, cls = imagenet_vit_forward(

@@ -7,11 +7,14 @@ transformer (with the v-skip ``x = v + o`` and the attention scale of the
 INPUT dim, the reference's quirks), a third soft split and a linear
 projection to the embed dim, then a [CLS] token, the fixed sinusoid
 positional table, SIE on all tokens and standard pre-LN blocks
-(``models/vit_imagenet.block_forward``, no stochastic depth, the eager
-attention core: the blocks call ``mha`` without ``use_flash``, as in JAX).
-The two token transformers run in fp32 whatever MODEL.COMPUTE_DTYPE, as
-JAX's ``t2t_forward`` calls them. MODEL.TRANSFORMER_TYPE t2t_vit_t_14 and
-t2t_vit_t_24: embed 384, depth 14 / 24, 6 heads, mlp ratio 3.
+(``models/vit_imagenet.block_forward``, no stochastic depth; under
+MODEL.USE_PALLAS_ATTENTION the blocks' attention takes the kernels, as
+the ImageNet tower's does). The two token transformers run in fp32
+whatever MODEL.COMPUTE_DTYPE, as JAX's ``t2t_forward`` calls them, their
+attention through the registered ``signal_tpu_torch::token_attention``
+(``ops/token_attention.py``). The tokens-to-token module is the span
+``model.t2t``. MODEL.TRANSFORMER_TYPE t2t_vit_t_14 and t2t_vit_t_24: embed
+384, depth 14 / 24, 6 heads, mlp ratio 3.
 
 Parameters carry the reference's names (``tokens_to_token.attention{1,2}``
 with ``norm1``, ``attn.qkv`` (no bias), ``attn.proj``, ``norm2``,
@@ -32,19 +35,23 @@ from torch import nn
 from signal_tpu_torch.models.vit_imagenet import Block, run_blocks, sie_slots
 from signal_tpu_torch.ops.attention import layer_norm, linear, stored_weight, true_fp32, \
     trunc_normal_
+from signal_tpu_torch.ops.token_attention import token_attention
+from signal_tpu_torch.utils.profiler import span
 
 TOKEN_DIM = 64
 
 
 def sinusoid_pos_embed(n_position: int, d_hid: int) -> torch.Tensor:
-    """The classic sinusoid table (the reference's get_sinusoid_encoding)."""
+    """The classic sinusoid table (the reference's get_sinusoid_encoding),
+    on the default device (a model built under ``torch.device(...)`` gets
+    it there)."""
     pos = np.arange(n_position)[:, None]
     dim = np.arange(d_hid)[None, :]
     angle = pos / np.power(10000, 2 * (dim // 2) / d_hid)
     table = np.zeros((n_position, d_hid), np.float32)
     table[:, 0::2] = np.sin(angle[:, 0::2])
     table[:, 1::2] = np.cos(angle[:, 1::2])
-    return torch.from_numpy(table)
+    return torch.tensor(table)
 
 
 def unfold(x: torch.Tensor, k: int, stride: int, pad: int) -> torch.Tensor:
@@ -97,8 +104,8 @@ def token_transformer(tt: TokenTransformer, x: torch.Tensor) -> torch.Tensor:
     with true_fp32():
         h = layer_norm(tt.norm1, x)
         q, k, v = linear(tt.attn.qkv.weight, None, h, f32).chunk(3, dim=-1)
-        attn = torch.softmax((q * dim ** -0.5) @ k.transpose(1, 2), dim=-1)
-        o = linear(tt.attn.proj.weight, tt.attn.proj.bias, attn @ v, f32)
+        o = linear(tt.attn.proj.weight, tt.attn.proj.bias, token_attention(q, k, v, dim ** -0.5),
+                   f32)
         x = v + o
         h = F.gelu(linear(tt.mlp.fc1.weight, tt.mlp.fc1.bias, layer_norm(tt.norm2, x), f32))
         return x + linear(tt.mlp.fc2.weight, tt.mlp.fc2.bias, h, f32)
@@ -110,6 +117,18 @@ class T2TModule(nn.Module):
         self.attention1 = TokenTransformer(3 * 7 * 7, token_dim)
         self.attention2 = TokenTransformer(token_dim * 3 * 3, token_dim)
         self.project = nn.Linear(token_dim * 3 * 3, embed_dim)
+
+
+def token_map(t2t: T2TModule, images: torch.Tensor) -> torch.Tensor:
+    """The two soft splits and their token transformers, in fp32: images
+    [B, 3, H, W] → [B, token_dim, H/8, W/8], the map the third soft split
+    unfolds."""
+    B, _, H, W = images.shape
+    td = t2t.attention1.attn.proj.in_features
+    x = token_transformer(t2t.attention1, unfold(images.float(), 7, 4, 2))
+    x = x.transpose(1, 2).reshape(B, td, H // 4, W // 4)
+    x = token_transformer(t2t.attention2, unfold(x, 3, 2, 1))
+    return x.transpose(1, 2).reshape(B, td, H // 8, W // 8)
 
 
 class T2TViT(nn.Module):
@@ -156,23 +175,21 @@ class T2TViT(nn.Module):
 
 
 def t2t_forward(net: T2TViT, images: torch.Tensor, cam_label=None, *, sie_xishu: float = 1.0,
-                num_heads: int = 6, compute_dtype=torch.bfloat16, remat: bool = False
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """images [B, 3, H, W] → (patch tokens [B, L, D], cls [B, D]), fp32."""
-    B, _, H, W = images.shape
+                num_heads: int = 6, compute_dtype=torch.bfloat16, use_flash: bool = False,
+                remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """images [B, 3, H, W] → (patch tokens [B, L, D], cls [B, D]), fp32.
+    The blocks' attention takes the kernels when ``use_flash``."""
+    B = images.shape[0]
     t2t = net.tokens_to_token
-    td = t2t.attention1.attn.proj.in_features
-    x = token_transformer(t2t.attention1, unfold(images.float(), 7, 4, 2))
-    x = x.transpose(1, 2).reshape(B, td, H // 4, W // 4)
-    x = token_transformer(t2t.attention2, unfold(x, 3, 2, 1))
-    x = x.transpose(1, 2).reshape(B, td, H // 8, W // 8)
-    x = linear(t2t.project.weight, t2t.project.bias, unfold(x, 3, 2, 1), compute_dtype)
+    with span("model.t2t"):
+        x = linear(t2t.project.weight, t2t.project.bias, unfold(token_map(t2t, images), 3, 2, 1),
+                   compute_dtype)
     width = x.shape[-1]
     x = torch.cat([net.cls_token.float().expand(B, 1, width), x], dim=1)
     x = x + net.pos_embed.float()
     if net.sie_embed is not None and cam_label is not None:
         x = x + sie_xishu * net.sie_embed[cam_label].float()
     x = run_blocks(net.blocks, x, remat=remat, num_heads=num_heads,
-                   compute_dtype=compute_dtype)
+                   compute_dtype=compute_dtype, use_flash=use_flash)
     x = layer_norm(net.norm, x, eps=net.norm.eps)
     return x[:, 1:], x[:, 0]

@@ -4,9 +4,11 @@
 * :func:`cost_analysis` counts what a call runs with
   ``torch.utils.flop_counter.FlopCounterMode``: the products and
   convolutions in its table, per launch. Like XLA's cost model in the JAX
-  package it cannot see inside a custom kernel: the attention operator
-  (``signal_tpu_torch::attention_fwd``) counts zero, and
-  :func:`flash_attention_flops` adds it by hand.
+  package it cannot see inside a registered operator: the attention
+  kernel's (``signal_tpu_torch::attention_fwd``) and T2T's token
+  attention (``signal_tpu_torch::token_attention``) count zero, and
+  :func:`flash_attention_flops` and :func:`token_attention_flops` add
+  them by hand.
 * :func:`signal_analytic_flops` is the MFU numerator: the matmul and conv
   FLOPs (2·MACs) of one Signal forward, or of one train step, with the
   JAX package's arithmetic for every backbone: the CLIP and ImageNet ViTs,
@@ -175,6 +177,21 @@ def _t2t_stage_flops(spec) -> float:
     return fl + 2.0 * L2 * (td * 9) * spec.width    # project 576 → embed
 
 
+def token_attention_flops(spec, batch_size: int) -> float:
+    """Analytic FLOPs of T2T's token attention in one eval forward over
+    the 3·B images (QKᵀ and A·V of one head of 64 at the first two soft
+    splits' tokens, :func:`_t2t_stage_flops`' terms): its operator
+    (``signal_tpu_torch::token_attention``) hides them from a FLOP
+    counter. 0 for any other backbone."""
+    if spec.backbone != "t2t":
+        return 0.0
+    from signal_tpu_torch.models.t2t import TOKEN_DIM as td
+
+    H, W = spec.image_size
+    L0, L1 = (H // 4) * (W // 4), (H // 8) * (W // 8)
+    return 3 * batch_size * 4.0 * (L0 * L0 + L1 * L1) * td
+
+
 def signal_analytic_flops(spec, batch_size: int, *, train: bool = False,
                           hardware: bool = False) -> float:
     """Analytic matmul/conv FLOPs (2·MACs) of one Signal forward, and of
@@ -227,8 +244,8 @@ def signal_analytic_flops(spec, batch_size: int, *, train: bool = False,
 def model_flops(model, batch_size: int = 1) -> float:
     """FLOPs of one eval forward of ``model`` (a ``Signal``) on zero
     images on its device: the counted products and convolutions plus the
-    analytic count of the attention kernel the counter cannot see, where
-    the backbone runs it."""
+    analytic counts of the operators the counter cannot see: the attention
+    kernel, where the backbone runs it, and T2T's token attention."""
     from signal_tpu_torch.models.signal_model import MODALITIES, forward_eval
 
     spec = model.spec
@@ -239,7 +256,7 @@ def model_flops(model, batch_size: int = 1) -> float:
     with torch.inference_mode():
         counted = cost_analysis(forward_eval, model, imgs, cams)["flops"]
     kernel = flash_attention_flops(spec, batch_size) if spec.attention_kernel else 0.0
-    return counted + kernel
+    return counted + kernel + token_attention_flops(spec, batch_size)
 
 
 def param_count(model: torch.nn.Module) -> int:

@@ -320,7 +320,8 @@ def test_frozen_lora_matches_jax(base):
 def test_spec_and_flops_equal_jax(ttype):
     """``ModelSpec.from_config`` field for field, ``image_size``, and the
     analytic FLOPs (eval, train, hardware) at the full spec, exactly; at
-    STRIDE_SIZE 12 too for the ViTs."""
+    STRIDE_SIZE 12 too for the ViTs. The blocks that take the kernels are
+    the port's: T2T's too, which the JAX package runs on its eager core."""
     strides = ["[16, 16]", "[12, 12]"] if "resnet" not in ttype and "osnet" not in ttype \
         else ["[16, 16]"]
     for stride in strides:
@@ -336,7 +337,8 @@ def test_spec_and_flops_equal_jax(ttype):
                 assert flops.flash_attention_flops(ours, B, **kw) == \
                     jflops.flash_attention_flops(theirs, B, **kw)
     assert ours.attention_kernel == (ttype in ("ViT-B-16", "vit_base_patch16_224",
-                                               "deit_base_patch16_224", "deit_small_patch16_224"))
+                                               "deit_base_patch16_224", "deit_small_patch16_224",
+                                               "t2t_vit_t_14", "t2t_vit_t_24"))
 
 
 def test_image_size_is_ambiguous_where_jax_says_so():

@@ -562,13 +562,17 @@ def test_accumulation_on_the_card_equals_one_step_on_half(cuda_device):
     ("imagenet", dict(backbone="imagenet", feat_dim=128, img_h=64, img_w=64)),
     ("imagenet_stride12", dict(backbone="imagenet", feat_dim=128, h=21, w=10,
                                stride_size=12, img_h=256, img_w=124)),
+    ("t2t", dict(backbone="t2t", feat_dim=128, img_h=64, img_w=64, mlp_ratio=3.0)),
 ])
 def test_variant_train_step_goes_through_both_kernels(cuda_device, name, opts):
     """One fp32 train step's loss and gradients of a small variant tower on
     the card, kernel path against plain-attention path, with its launches:
     2 forward and 1 backward per block and stream (the prompted tower runs
     three streams; STRIDE_SIZE 12 runs 211 tokens, the backward's long route
-    in bf16 — here fp32), and the ImageNet ViT's at both strides."""
+    in bf16 — here fp32), the ImageNet ViT's at both strides, and T2T's
+    body. T2T's linear kernels are taken at 5× their init σ, as in the CPU
+    parity tests: at σ 0.02 its tower maps every input to nearly one
+    feature, and the BNNecks' differences are fp32 rounding."""
     import dataclasses
 
     from signal_tpu_torch.models import signal_model as sm
@@ -581,6 +585,11 @@ def test_variant_train_step_goes_through_both_kernels(cuda_device, name, opts):
     H = (spec.h - 1) * spec.stride_size + 16
     W = (spec.w - 1) * spec.stride_size + 16
     model = sm.init_signal(spec, seed=0).to(cuda_device)
+    if spec.backbone == "t2t":
+        with torch.no_grad():
+            for m in model.base.modules():
+                if isinstance(m, torch.nn.Linear):
+                    m.weight.mul_(5.0)
     gen = torch.Generator(device=cuda_device).manual_seed(5)
     x = torch.randn(4, 3, 3, H, W, device=cuda_device, generator=gen)
     cams = torch.tensor([0, 1, 2, 0], device=cuda_device)
@@ -801,3 +810,51 @@ def test_train_step_launches_no_epilogue(cuda_device):
     torch.cuda.synchronize()
     assert torch.isfinite(loss)
     assert _epilogue_launches() == before and attention_bwd_cuda.launches == bwd + spec.layers
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_t2t_eval_forward_takes_the_kernels(cuda_device, dtype):
+    """T2T-ViT-t-14 at its widths (256×128, 14 blocks of 6 heads at 129
+    tokens): an eval forward launches the attention kernel once a block
+    and the token attention operator once a token transformer, and its
+    outputs keep to the plain path's by phase 15's rules: in bf16 the
+    tower's class and patch tokens by cosine > 0.99, in fp32 the features
+    by atol 1e-3 + rtol 1e-3. The tokens-to-token module's Linear weights
+    are taken at 5× their init σ, as phase 15 takes them: at σ 0.02 its
+    output is a tenth of the sinusoid table's and every input maps to
+    nearly one feature."""
+    import dataclasses
+
+    from signal_tpu_torch.models import signal_model as sm
+    from signal_tpu_torch.ops.flash_attention import attention_fwd_cuda
+    from signal_tpu_torch.ops.token_attention import token_attention
+
+    spec = sm.ModelSpec(num_classes=171, camera_num=4, backbone="t2t", width=384, layers=14,
+                        num_heads=6, feat_dim=384, mlp_ratio=3.0, img_h=256, img_w=128,
+                        compute_dtype=dtype)
+    model = sm.init_signal(spec, seed=0).to(cuda_device)
+    with torch.no_grad():
+        for m in model.base.tokens_to_token.modules():
+            if isinstance(m, torch.nn.Linear):
+                m.weight.mul_(5.0)
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    imgs = torch.randn(4, 3, 3, 256, 128, device=cuda_device, generator=gen)
+    cams = torch.tensor([0, 3, 1, 2], device=cuda_device)
+    out = {}
+    for use_flash in (True, False):
+        model.spec = dataclasses.replace(spec, use_flash=use_flash)
+        fwd, calls = attention_fwd_cuda.launches, token_attention.calls
+        with torch.inference_mode():
+            patches, cls, _ = sm._encode(model, imgs, cams)
+            feats = sm.forward_eval(model, imgs, cams)
+        torch.cuda.synchronize()
+        assert (attention_fwd_cuda.launches - fwd, token_attention.calls - calls) == \
+            ((28 if use_flash else 0), 4)
+        out[use_flash] = (patches, cls, feats)
+    (p_k, c_k, f_k), (p_p, c_p, f_p) = out[True], out[False]
+    if dtype == "float32":
+        torch.testing.assert_close(f_k, f_p, atol=1e-3, rtol=1e-3)
+    else:
+        cos = torch.nn.functional.cosine_similarity
+        assert cos(c_k.flatten(0, 1), c_p.flatten(0, 1), dim=-1).min() > 0.99
+        assert cos(p_k.flatten(0, 2), p_p.flatten(0, 2), dim=-1).min() > 0.99
