@@ -7,10 +7,10 @@ Phases (any failure exits non-zero; nothing is caught):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every CUDA kernel of the port from ``signal_tpu_torch/csrc``,
      one nvcc per source, all started together; each kernel's registers,
-     spill bytes and tensor-core instructions (HMMA, or the forward's long
-     route's warpgroup HGMMA, in ``cuobjdump -sass``;
-     a bf16 or 3xTF32 kernel without them fails; the fp32 forward runs on
-     the CUDA cores);
+     spill bytes and tensor-core instructions (HMMA, or the warpgroup
+     HGMMA of the forward's long route and of T2T's token attention, in
+     ``cuobjdump -sass``; a bf16 or 3xTF32 kernel without them fails; the
+     fp32 forward runs on the CUDA cores);
   3. kernels vs plain: each kernel's wrapper (attention forward and
      backward) against its plain PyTorch version on the card, at the main
      paths' shapes, at odd ones and at every tile edge of the bf16 kernels
@@ -36,7 +36,14 @@ Phases (any failure exits non-zero; nothing is caught):
      against the ATen chain it replaces, to the bit (signed zeros
      included), at the gallery shapes ([49536, 768] × 3, [49536, 3072],
      [49536, 768] and its residual) and at ragged ones, with ms, the
-     chain's ms and the byte bound at the gallery shapes;
+     chain's ms and the byte bound at the gallery shapes; then T2T's token
+     attention operator (``ops/token_attention.py``, one launch of
+     ``csrc/token_attention.cu``) on the qkv product's chunk views at the
+     gallery batch's [384, 2048 | 512, 64] and at ragged lengths, each of
+     the first 16 rows within 2e-6 of a float64 eager core and each row
+     within 1e-5 of the eager fp32 core (relative L2), two launches equal
+     to the bit, with ms, the eager core's and SDPA's ms and the bound at
+     the 3xTF32 rate at the gallery shapes;
   4. eval slice: ``forward_eval`` of the flagship RGBNT201 model (CLIP
      ViT-B/16, width 768, 12 heads, 256×128, SIE, SIM TOPK 80; random
      weights from a seed) on B=128 random packed uint8 images, kernel path
@@ -110,8 +117,10 @@ Phases (any failure exits non-zero; nothing is caught):
      under the cosine rule held within 4× its own bf16 rounding instead);
      launches per eval forward, train forward and backward asserted (12 /
      24 / 12, T2T's 14 / 28 / 14, the long route's 12 at 211 tokens, 0 for
-     vit_small's qk scale and the CNNs, as in JAX), ms by the host clock and
-     device time, peak memory, MFU, and the CNN trunks' running statistics (moved
+     vit_small's qk scale and the CNNs, as in JAX), T2T's token attention
+     kernel's launches asserted (2 an eval forward and a train step, both
+     paths of the comparisons included; 0 for every other backbone), ms by
+     the host clock and device time, peak memory, MFU, and the CNN trunks' running statistics (moved
      by the step, not by eval); then ``train_main`` and ``test_main`` on
      the synthetic config with vit_base_patch16_224 and resnet50;
  16. CLIP-ReID at full width (random weights from SOLVER.SEED, bf16, the
@@ -379,14 +388,16 @@ def mfu(torch, spec, batch: int, ms: float, train: bool = False) -> dict:
 def time_train_steps(torch, step, batch, n: int = 5):
     """One warm-up step, then ``n`` timed ones (host clock around
     synchronised steps) → {ms_per_step, peak_memory_gib, forward and
-    backward kernel launches per step, losses}."""
+    backward kernel launches per step, token attention launches per step,
+    losses}."""
     from signal_tpu_torch.ops.flash_attention import attention_bwd_cuda, attention_fwd_cuda
+    from signal_tpu_torch.ops.token_attention import token_attention_cuda
 
     step(*batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     attention_fwd_cuda.launches = attention_bwd_cuda.launches = 0
-    attention_bwd_cuda.launches_long = 0
+    attention_bwd_cuda.launches_long = token_attention_cuda.launches = 0
     fwd_long = attention_fwd_cuda.launches_long  # read, not zeroed: main() counts it whole
     epilogue_launches(zero=True)
     t0 = time.perf_counter()
@@ -403,6 +414,7 @@ def time_train_steps(torch, step, batch, n: int = 5):
                                                      - fwd_long) / n,
             "attention_bwd_launches_per_step": attention_bwd_cuda.launches / n,
             "attention_bwd_long_launches_per_step": attention_bwd_cuda.launches_long / n,
+            "token_attention_launches_per_step": token_attention_cuda.launches / n,
             "losses": [x.item() for x in losses]}
 
 
@@ -764,6 +776,88 @@ def check_epilogues(torch, report, peaks):
     return rows_out
 
 
+# T2T's token attention (phase 3): (name, rows, L, the input dim whose
+# dim^-1/2 scales the logits, timed): the gallery batch's two token
+# transformers, then lengths on each side of a 64-key tile and a 128-row
+# block
+TOKEN_SHAPES = [("gallery-2048", 384, 2048, 147, True), ("gallery-512", 384, 512, 576, True),
+                ("ragged-77", 4, 77, 147, False), ("ragged-2047", 4, 2047, 147, False)]
+# rows held to float64 (the first of each case), and the largest relative
+# L2 gap of a row allowed there (a TF32 product reads about 1e-4, the eager
+# fp32 core 3.2e-6); against the eager fp32 core, each row within 1e-5,
+# about twice the sum of the two cores' gaps
+TOKEN_FP64_ROWS, TOKEN_FP64_GAP, TOKEN_PLAIN_GAP = 16, 2e-6, 1e-5
+
+
+def check_token_attention(torch, report, peaks):
+    """Phase 3: T2T's token attention operator on the card
+    (``ops/token_attention.py``, one launch of ``csrc/token_attention.cu``
+    a call) on the ``.chunk(3, -1)`` views of [rows, L, 192] qkv products
+    as ``models/t2t.token_transformer`` hands them over, with the logits
+    spread by about 2 as in the T2T cell: each of the first rows against a
+    float64 eager core, each row against the eager fp32 core (the plain
+    version), two launches equal to the bit; at the gallery shapes ms, the
+    eager core's ms, SDPA's in fp32 (the library) and the bound, 4·rows·L²·64
+    operations at the 3xTF32 rate. → {name: row}"""
+    import torch.nn.functional as F
+
+    from signal_tpu_torch.ops.token_attention import (
+        eager_core,
+        token_attention,
+        token_attention_cuda,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    rows_out = {}
+    for name, rows, L, dim, timed in TOKEN_SHAPES:
+        s = dim ** -0.5
+        qkv = torch.randn(rows, L, 192, device="cuda", generator=gen)
+        qkv[..., :64] *= 2.0 / (64 ** 0.5 * s)
+        q, k, v = qkv.chunk(3, dim=-1)
+        n64 = min(rows, TOKEN_FP64_ROWS)
+        with torch.inference_mode():
+            before = token_attention_cuda.launches
+            got, again = token_attention(q, k, v, s), token_attention(q, k, v, s)
+            torch.cuda.synchronize()
+            launched = token_attention_cuda.launches - before
+            plain = eager_core(q, k, v, s)
+            ref64 = eager_core(*(t[:n64].double() for t in (q, k, v)), s)
+
+            def gap(x, ref):
+                return ((x.double() - ref).norm(dim=-1) / ref.norm(dim=-1)).max().item()
+
+            row = {"shape": [rows, L, 64], "scale": s, "launches": launched,
+                   "repeat_bit_identical": torch.equal(got, again),
+                   "max_abs_err": (got - plain).abs().max().item(),
+                   "row_gap_vs_plain": gap(got, plain.double()),
+                   "row_gap_fp64": gap(got[:n64], ref64),
+                   "plain_row_gap_fp64": gap(plain[:n64], ref64), "fp64_rows": n64}
+            del got, again, plain, ref64
+        if timed:
+            flops, nbytes = 4 * rows * L * L * 64, 4 * 64 * rows * 4 * L
+            bound, by = kernel_bound(peaks, nbytes, flops, True)
+            q4, k4, v4 = (t[:, None] for t in (q, k, v))
+            with torch.inference_mode():
+                row.update(
+                    ms=cuda_ms(torch, lambda: token_attention(q, k, v, s), iters=10),
+                    plain_ms=cuda_ms(torch, lambda: eager_core(q, k, v, s), iters=5),
+                    library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                        q4, k4, v4, scale=s), iters=5),
+                    flops=flops, bytes=nbytes, bound_ms=bound, bound_by=by)
+            row.update(tflops=flops / row["ms"] / 1e9, share_of_bound=bound / row["ms"])
+        rows_out[name] = row
+        log(f"[kernel] token_attention {name}: {json.dumps(row)}")
+        if launched != 2 or not row["repeat_bit_identical"] or \
+                row["row_gap_fp64"] > TOKEN_FP64_GAP or row["row_gap_vs_plain"] > TOKEN_PLAIN_GAP:
+            raise SystemExit(f"token_attention {name}: {row} (want 2 launches, the same bits, "
+                             f"rows within {TOKEN_FP64_GAP} of float64 and {TOKEN_PLAIN_GAP} "
+                             f"of the eager core)")
+        del qkv, q, k, v
+        torch.cuda.empty_cache()
+    report["token_attention"] = rows_out
+    return rows_out
+
+
 def log_edges(kernel: str, rows) -> None:
     """One line a dtype for the tile-edge cases (each row is in
     chip_smoke.json)."""
@@ -781,7 +875,7 @@ def check_build(torch, report):
     from signal_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    libs = _build.build(["attention_fwd", "attention_bwd", "tower_epilogue"])
+    libs = _build.build(["attention_fwd", "attention_bwd", "tower_epilogue", "token_attention"])
     report["build_s"] = time.perf_counter() - t0
     kernels = {}
     for lib in libs:
@@ -793,7 +887,8 @@ def check_build(torch, report):
                 f"{row['spill_stores']} B, spill loads {row['spill_loads']} B, "
                 f"HMMA/HGMMA {row['hmma']}")
             if any(k in short for k in ("mma_kernel", "onepass_kernel", "fwd_long_kernel",
-                                        "fused_kernel", "tf32_kernel")) and row["hmma"] == 0:
+                                        "fused_kernel", "tf32_kernel",
+                                        "token_attention_fwd_kernel")) and row["hmma"] == 0:
                 raise SystemExit(f"{short} has no tensor-core instruction")
     report["build"] = kernels
     log(f"[build] {sorted(libs)} in {report['build_s']:.1f} s")
@@ -2146,7 +2241,9 @@ ROUNDING_FACTOR = 4.0
 # configs/RGBNT201/Signal.yml, forward / backward kernel launches per eval
 # forward and train step: 12 / 24 / 12 where the blocks take the kernel
 # (14 / 28 / 14 for T2T's body), 0 where they do not (vit_small's qk
-# scale, the CNNs))
+# scale, the CNNs)); T2T's token attention kernel launches once a token
+# transformer, 2 an eval forward and a train step, and no other backbone
+# launches it
 BACKBONES = [
     ("vit_base", ["MODEL.TRANSFORMER_TYPE", "vit_base_patch16_224"], True),
     ("vit_base_stride12", ["MODEL.TRANSFORMER_TYPE", "vit_base_patch16_224",
@@ -2176,19 +2273,23 @@ def check_backbones(torch, report):
     at B = 64 (bf16, device augment, Adam, DROP_PATH 0.1 from the config):
     launches per eval forward, train forward and backward (asserted: 12 /
     24 / 12 with the kernel, all 12 backward launches on the long route at
-    211 tokens, 0 without), ms by the host clock and device time, peak
-    memory, MFU. For the CNNs, the trunk's running statistics move in the
+    211 tokens, 0 without) and the token attention kernel's (asserted: 2
+    an eval forward and a train step for T2T, 0 for the others), also in
+    the comparisons, ms by the host clock and device time, peak memory,
+    MFU. For the CNNs, the trunk's running statistics move in the
     train step and not in eval. → the driven launches."""
     from signal_tpu_torch.config import load_config
     from signal_tpu_torch.data.augment import normalize_images
     from signal_tpu_torch.engine.train import make_train_step
     from signal_tpu_torch.models import signal_model as sm
     from signal_tpu_torch.ops.flash_attention import attention_bwd_cuda, attention_fwd_cuda
+    from signal_tpu_torch.ops.token_attention import token_attention_cuda
     from signal_tpu_torch.solver import make_optimizer, schedule_coeffs, set_lr
 
     C, B_eval = 171, 128
     gen = torch.Generator(device="cuda").manual_seed(15)
-    driven = {"attention_fwd": 0, "attention_bwd": 0, "attention_bwd_long": 0}
+    driven = {"attention_fwd": 0, "attention_bwd": 0, "attention_bwd_long": 0,
+              "token_attention": 0}
     out = {}
     for name, opts, kernel in BACKBONES:
         t0 = time.perf_counter()
@@ -2198,6 +2299,7 @@ def check_backbones(torch, report):
         if spec.attention_kernel != kernel or B != 64 or cfg.MODEL.DROP_PATH != 0.1:
             raise SystemExit(f"{name}: {spec}")
         tokens = spec.h * spec.w + 1
+        per_fwd = 2 if spec.backbone == "t2t" else 0   # token attention launches
         model = sm.init_signal(spec, seed=cfg.SOLVER.SEED).to("cuda")
         if spec.backbone == "t2t":
             # at σ 0.02 the tokens-to-token module's output is a tenth of the
@@ -2227,15 +2329,16 @@ def check_backbones(torch, report):
 
             def features(dtype, use_flash):
                 model.spec = dataclasses.replace(spec, compute_dtype=dtype, use_flash=use_flash)
-                before = attention_fwd_cuda.launches
+                before, token = attention_fwd_cuda.launches, token_attention_cuda.launches
                 with torch.inference_mode():
                     patches, cls, _ = sm._encode(model, imgs_e, cams_e)
                     feats = sm.forward_eval(model, imgs_e, cams_e)
                 torch.cuda.synchronize()
-                launched = attention_fwd_cuda.launches - before
-                if launched != (2 * spec.layers if use_flash else 0):
+                launched = (attention_fwd_cuda.launches - before,
+                            token_attention_cuda.launches - token)
+                if launched != ((2 * spec.layers if use_flash else 0), 2 * per_fwd):
                     raise SystemExit(f"{name} eval {dtype} use_flash={use_flash}: {launched} "
-                                     f"kernel launches")
+                                     f"kernel and token attention launches")
                 return patches, cls, feats
 
             # eval, fp32 (phase 4): atol 1e-3 + rtol 1e-3
@@ -2319,13 +2422,16 @@ def check_backbones(torch, report):
                              f"{bool(torch.isfinite(feats).all())}")
         stats0 = base_stats(model)
         attention_fwd_cuda.launches = attention_bwd_cuda.launches = 0
+        token_attention_cuda.launches = 0
         t1 = time.perf_counter()
         for _ in range(2):
             evaluate()
         torch.cuda.synchronize()
         row["eval_ms_per_batch"] = (time.perf_counter() - t1) / 2 * 1e3
         row["eval_launches_per_forward"] = attention_fwd_cuda.launches / 2
+        row["eval_token_attention_launches_per_forward"] = token_attention_cuda.launches / 2
         driven["attention_fwd"] += attention_fwd_cuda.launches
+        driven["token_attention"] += token_attention_cuda.launches
         row["eval_mfu"] = mfu(torch, spec, B_eval, row["eval_ms_per_batch"])
         eval_moved = any(not torch.equal(v, stats0[k]) for k, v in base_stats(model).items())
         optimizer = make_optimizer(model, cfg)
@@ -2333,9 +2439,8 @@ def check_backbones(torch, report):
         step = make_train_step(model, cfg, C, optimizer, device_augment=True,
                                gen=torch.Generator(device="cuda").manual_seed(4))
         timed = time_train_steps(torch, step, (u8, pids, cams), n=2)
-        for k in ("fwd", "bwd", "bwd_long"):
-            key = f"attention_{k}_launches_per_step"
-            driven[f"attention_{k}"] += round(timed[key] * 2)
+        for k in ("attention_fwd", "attention_bwd", "attention_bwd_long", "token_attention"):
+            driven[k] += round(timed[f"{k}_launches_per_step"] * 2)
         train_moved = [not torch.equal(v, stats0[k]) for k, v in base_stats(model).items()]
         row.update(train_ms_per_step=timed["ms_per_step"],
                    train_samples_per_s=timed["samples_per_s"],
@@ -2344,6 +2449,8 @@ def check_backbones(torch, report):
                    train_bwd_launches_per_step=timed["attention_bwd_launches_per_step"],
                    train_bwd_long_launches_per_step=timed[
                        "attention_bwd_long_launches_per_step"],
+                   train_token_attention_launches_per_step=timed[
+                       "token_attention_launches_per_step"],
                    train_losses=timed["losses"],
                    train_device_busy_ms_per_step=device_busy_ms(torch, step, (u8, pids, cams),
                                                                 n=1))
@@ -2365,6 +2472,11 @@ def check_backbones(torch, report):
         if row["train_bwd_long_launches_per_step"] != long_want:
             raise SystemExit(f"{name}: {row['train_bwd_long_launches_per_step']} long-route "
                              f"launches a step, want {long_want}")
+        got = (row["eval_token_attention_launches_per_forward"],
+               row["train_token_attention_launches_per_step"])
+        if got != (per_fwd, per_fwd):
+            raise SystemExit(f"{name}: token attention launches (eval forward, train step) "
+                             f"{got}, want {(per_fwd, per_fwd)}")
         if not all(math.isfinite(x) for x in row["train_losses"]):
             raise SystemExit(f"{name}: non-finite train loss {row['train_losses']}")
         if spec.backbone in ("resnet", "osnet") and (eval_moved or not all(train_moved)):
@@ -3836,6 +3948,7 @@ def main() -> int:
     rows = check_attention(torch, report, peaks)
     bwd = check_attention_bwd(torch, report, peaks)
     epi = check_epilogues(torch, report, peaks)
+    tok = check_token_attention(torch, report, peaks)
     # from here on only phase 14's 384×128 input at STRIDE_SIZE 12 runs past
     # 256 keys: the forward's long route is reached by its launches alone
     # (counted here, in phase 14 and in each rank)
@@ -4075,7 +4188,27 @@ def main() -> int:
             tag = key.split("-")[0]
             for k in ("ms", "plain_ms", "bound_ms", "share_of_bound", "bytes", "shape"):
                 epi_entry[f"{k}_{tag}"] = r[k]
-    kernels = [fwd, fwd_long_entry, bwd_entry, long_entry, fp32_fwd, fp32_bwd, epi_entry]
+    # T2T's token attention (no TPU kernel: XLA runs this attention on the
+    # TPU), at the gallery batch's two shapes; launches on phase 15's driven
+    # paths (2 a T2T eval forward and train step, 0 for the other backbones)
+    big, small = tok["gallery-2048"], tok["gallery-512"]
+    tok_entry = {
+        "name": "token_attention", "route": "cuda",
+        "source": "signal_tpu_torch/csrc/token_attention.cu", "replaces": None,
+        "kernels": ["token_attention_fwd_kernel"],
+        "launches": backbone_launches["token_attention"],
+        "launches_per_t2t_forward": report["backbones"]["t2t_vit_t_14"][
+            "eval_token_attention_launches_per_forward"],
+        "cases": len(tok), "max_abs_err": max(r["max_abs_err"] for r in tok.values()),
+        "row_gap_fp64": max(r["row_gap_fp64"] for r in tok.values()),
+        "row_gap_vs_plain": max(r["row_gap_vs_plain"] for r in tok.values()),
+        "repeat_bit_identical": all(r["repeat_bit_identical"] for r in tok.values()),
+        **{key: big[key] for key in timed + ("share_of_bound",)},
+        **{f"{key}_l512": small[key] for key in timed + ("share_of_bound",)},
+        "ptxas": {short: report["build"][short] for short in report["build"]
+                  if "token_attention" in short}}
+    kernels = [fwd, fwd_long_entry, bwd_entry, long_entry, fp32_fwd, fp32_bwd, epi_entry,
+               tok_entry]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     out = REPO / "chiprun_out"

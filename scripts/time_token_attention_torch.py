@@ -1,32 +1,37 @@
 #!/usr/bin/env python3
 """Device time of T2T's token attention, forward and backward, on one
-NVIDIA GPU: the operator the port runs against the candidates a kernel
-behind it would be measured against.
+NVIDIA GPU: the operator as the port runs it against the eager core it
+replaced and PyTorch's own.
 
     python3 scripts/time_token_attention_torch.py [--rows 384] [--iters 5]
 
 At the gallery batch's shapes (B 128 triplets: 384 rows of one head of 64,
 float32) of both token transformers, [rows, 2048, 64] at scale 147^-1/2
-and [rows, 512, 64] at 576^-1/2, it times by CUDA events over ``--iters``
-calls after a warm-up:
+and [rows, 512, 64] at 576^-1/2, with q, k and v the ``.chunk(3, -1)``
+views of a [rows, L, 192] qkv product as ``models/t2t.token_transformer``
+hands them over, it times by CUDA events over ``--iters`` calls after a
+warm-up:
 
-* ``eager``: ``torch.ops.signal_tpu_torch.token_attention``, the eager
-  fp32 core with TF32 off (its backward recomputes the probabilities);
-* ``port_fp32_kernel``: the port's fp32 attention kernels at one head
-  (``ops/flash_attention.attention_fwd_cuda`` / ``attention_bwd_cuda``:
-  the CUDA-core forward, the 3xTF32 backward), q pre-scaled by
-  (dim/64)^-1/2 so that the kernels' 64^-1/2 makes the input dim's scale;
+* ``kernel``: ``torch.ops.signal_tpu_torch.token_attention`` as it runs on
+  the card, its forward ``csrc/token_attention.cu`` (3xTF32 on the tensor
+  cores, the views as they lie), its backward the operator's (the
+  probabilities recomputed eagerly);
+* ``eager``: the eager fp32 core (``ops/token_attention.eager_core``, TF32
+  off), the operator's forward until the kernel; its backward ATen's
+  autograd of that expression, which keeps the probabilities;
 * ``sdpa``: ``torch.nn.functional.scaled_dot_product_attention`` in fp32
   at that scale (whichever backend PyTorch picks for it).
 
 The backward is timed as forward + backward less the forward. Each
-candidate's output is held to the eager one (max abs error printed). With
-the operations (4·rows·L²·64 forward, twice that backward) at the
-fp32-accurate tensor-core rate (495/3 TFLOP/s on an H100 SXM) and the
+candidate's output is held to the eager one (max abs error) and to a
+float64 eager core on the first 16 rows (the largest relative L2 gap of a
+row). With the operations (4·rows·L²·64 forward, twice that backward) at
+the fp32-accurate tensor-core rate (495/3 TFLOP/s on an H100 SXM) and the
 bytes (q, k, v, o; backward q, k, v, dO read, dq, dk, dv written, fp32)
-at 3.35 TB/s, each time's bound is printed. Prints one JSON object last
-and writes it to ``chiprun_out/time_token_attention_torch.json``. Needs a
-CUDA card.
+at 3.35 TB/s, each time's bound is printed, with the forward's TFLOP/s
+(the kernel's registers and spill bytes are ``chip_smoke.py``'s phase 2).
+Prints one JSON object last and writes it to
+``chiprun_out/time_token_attention_torch.json``. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -54,8 +59,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("time_token_attention_torch: needs a CUDA card", file=sys.stderr)
         return 2
-    from signal_tpu_torch.ops.flash_attention import attention_bwd_cuda, attention_fwd_cuda
-    from signal_tpu_torch.ops.token_attention import token_attention
+    from signal_tpu_torch.ops.token_attention import eager_core, token_attention
 
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -76,28 +80,27 @@ def main() -> int:
     out = {"card": card.strip(), "rows": args.rows, "shapes": {}}
     for L, dim in ((2048, 147), (512, 576)):
         s = dim ** -0.5
-        q, k, v, g = (torch.randn(args.rows, L, 64, device=dev, generator=gen)
-                      for _ in range(4))
+        qkv = torch.randn(args.rows, L, 192, device=dev, generator=gen)
+        g = torch.randn(args.rows, L, 64, device=dev, generator=gen)
         # logits spread with a standard deviation of about 2, as in the cell
-        q.mul_(2.0 / (64 ** 0.5 * s))
-        ref = token_attention(q, k, v, s)
+        qkv[..., :64] *= 2.0 / (64 ** 0.5 * s)
+        q, k, v = qkv.chunk(3, dim=-1)
+        ref = eager_core(q, k, v, s)
+        ref64 = eager_core(*(t[:16].double() for t in (q, k, v)), s)
 
-        def eager_fwd():
+        def kernel_fwd():
             return token_attention(q, k, v, s)
 
+        def kernel_both():
+            x = qkv.detach().requires_grad_()
+            torch.autograd.grad(token_attention(*x.chunk(3, dim=-1), s), x, g)
+
+        def eager_fwd():
+            return eager_core(q, k, v, s)
+
         def eager_both():
-            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
-            torch.autograd.grad(token_attention(qq, kk, vv, s), (qq, kk, vv), g)
-
-        qs = (q * (dim / 64) ** -0.5).contiguous()
-
-        def port_fwd():
-            return attention_fwd_cuda(qs, k, v, 1)
-
-        def port_both():
-            o = attention_fwd_cuda(qs, k, v, 1)
-            attention_bwd_cuda(qs, k, v, g, 1)
-            return o
+            x = qkv.detach().requires_grad_()
+            torch.autograd.grad(eager_core(*x.chunk(3, dim=-1), s), x, g)
 
         q4, k4, v4, g4 = (t[:, None] for t in (q, k, v, g))
 
@@ -115,21 +118,25 @@ def main() -> int:
         row = {"scale": s, "bound_fwd_ms": 1e3 * max(fwd_ops / FP32_TC, fwd_bytes / BW),
                "bound_bwd_ms": 1e3 * max(2 * fwd_ops / FP32_TC, bwd_bytes / BW)}
         with torch.no_grad():
-            for name, f, b in (("eager", eager_fwd, eager_both), ("port_fp32_kernel", port_fwd,
-                                                                   port_both),
+            for name, f, b in (("kernel", kernel_fwd, kernel_both),
+                               ("eager", eager_fwd, eager_both),
                                ("sdpa", sdpa_fwd, sdpa_both)):
-                err = (f() - ref).abs().max().item()
+                o = f()
+                err = (o - ref).abs().max().item()
+                gap = ((o[:16].double() - ref64).norm(dim=-1) / ref64.norm(dim=-1)).max().item()
+                del o
                 torch.cuda.reset_peak_memory_stats()
                 fwd_ms = timed(f, args.iters)
                 with torch.enable_grad():
                     both_ms = timed(b, args.iters)
                 row[name] = {"fwd_ms": fwd_ms, "bwd_ms": both_ms - fwd_ms,
-                             "fwd_bwd_ms": both_ms, "max_abs_err_vs_eager": err,
+                             "fwd_bwd_ms": both_ms, "fwd_tflops": fwd_ops / fwd_ms / 1e9,
+                             "max_abs_err_vs_eager": err, "row_gap_vs_fp64": gap,
                              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
                 torch.cuda.empty_cache()
         out["shapes"][f"[{args.rows}, {L}, 64]"] = row
         print(json.dumps({f"[{args.rows}, {L}, 64]": row}), flush=True)
-        del q, k, v, g, qs, q4, k4, v4, g4, ref
+        del qkv, q, k, v, g, q4, k4, v4, g4, ref, ref64
         torch.cuda.empty_cache()
     dest = REPO / "chiprun_out" / "time_token_attention_torch.json"
     dest.parent.mkdir(exist_ok=True)

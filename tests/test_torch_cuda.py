@@ -816,7 +816,8 @@ def test_train_step_launches_no_epilogue(cuda_device):
 def test_t2t_eval_forward_takes_the_kernels(cuda_device, dtype):
     """T2T-ViT-t-14 at its widths (256×128, 14 blocks of 6 heads at 129
     tokens): an eval forward launches the attention kernel once a block
-    and the token attention operator once a token transformer, and its
+    and the token attention operator once a token transformer, each call
+    the token attention kernel (two launches a forward), and its
     outputs keep to the plain path's by phase 15's rules: in bf16 the
     tower's class and patch tokens by cosine > 0.99, in fp32 the features
     by atol 1e-3 + rtol 1e-3. The tokens-to-token module's Linear weights
@@ -827,7 +828,7 @@ def test_t2t_eval_forward_takes_the_kernels(cuda_device, dtype):
 
     from signal_tpu_torch.models import signal_model as sm
     from signal_tpu_torch.ops.flash_attention import attention_fwd_cuda
-    from signal_tpu_torch.ops.token_attention import token_attention
+    from signal_tpu_torch.ops.token_attention import token_attention, token_attention_cuda
 
     spec = sm.ModelSpec(num_classes=171, camera_num=4, backbone="t2t", width=384, layers=14,
                         num_heads=6, feat_dim=384, mlp_ratio=3.0, img_h=256, img_w=128,
@@ -844,12 +845,15 @@ def test_t2t_eval_forward_takes_the_kernels(cuda_device, dtype):
     for use_flash in (True, False):
         model.spec = dataclasses.replace(spec, use_flash=use_flash)
         fwd, calls = attention_fwd_cuda.launches, token_attention.calls
+        token = token_attention_cuda.launches
         with torch.inference_mode():
             patches, cls, _ = sm._encode(model, imgs, cams)
             feats = sm.forward_eval(model, imgs, cams)
         torch.cuda.synchronize()
-        assert (attention_fwd_cuda.launches - fwd, token_attention.calls - calls) == \
-            ((28 if use_flash else 0), 4)
+        # each token transformer's call launches the token attention
+        # kernel, whatever the body takes: no call falls back to the eager core
+        assert (attention_fwd_cuda.launches - fwd, token_attention.calls - calls,
+                token_attention_cuda.launches - token) == ((28 if use_flash else 0), 4, 4)
         out[use_flash] = (patches, cls, feats)
     (p_k, c_k, f_k), (p_p, c_p, f_p) = out[True], out[False]
     if dtype == "float32":
@@ -858,3 +862,139 @@ def test_t2t_eval_forward_takes_the_kernels(cuda_device, dtype):
         cos = torch.nn.functional.cosine_similarity
         assert cos(c_k.flatten(0, 1), c_p.flatten(0, 1), dim=-1).min() > 0.99
         assert cos(p_k.flatten(0, 2), p_p.flatten(0, 2), dim=-1).min() > 0.99
+
+
+# T2T's token attention kernel (csrc/token_attention.cu, behind
+# signal_tpu_torch::token_attention on the card): the gallery's lengths at
+# 4 rows, ragged lengths on each side of a 64-key tile and a 128-row block
+# (77, 129, 2047), one query against many keys and many queries against
+# one key
+_TOKEN_SHAPES = [(4, 2048, 2048), (4, 512, 512), (2, 77, 77), (2, 2047, 2047), (2, 1, 2047),
+                 (2, 129, 65), (2, 200, 1)]
+
+
+def _token_qkv(B, Lq, Lk, scale, device, seed=0, grad=False):
+    """q, k, v as ``models/t2t.token_transformer`` hands them over: the
+    ``.chunk(3, -1)`` views of [B, L, 192] qkv products (row stride 192),
+    one product where Lq == Lk; q scaled so that the logits spread with a
+    standard deviation of about 2, as in the T2T cell. → (products, views)"""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    a = torch.randn(B, Lq, 192, device=device, generator=gen)
+    a[..., :64] *= 2.0 / (8.0 * scale)
+    b = a if Lk == Lq else torch.randn(B, Lk, 192, device=device, generator=gen)
+    prods = [t.requires_grad_(grad) for t in ((a,) if b is a else (a, b))]
+    return prods, (prods[0][..., :64], prods[-1][..., 64:128], prods[-1][..., 128:])
+
+
+def _row_gap(x, ref):
+    """Largest relative L2 gap of a row of x against ref (float64)."""
+    return ((x.double() - ref).norm(dim=-1) / ref.norm(dim=-1)).max().item()
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 bits of mantissa, to nearest, ties away), as
+    float64."""
+    i = x.float().contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32).double()
+
+
+def _tf32_attention(q, k, v, s):
+    """The eager core with TF32 products: each product's operands rounded
+    to TF32, the sums in float64 (cuBLAS may take no TF32 path at small
+    shapes, so its TF32 mode is no yardstick there)."""
+    p = torch.softmax(_tf32(q * s) @ _tf32(k).transpose(1, 2), dim=-1)
+    return _tf32(p) @ _tf32(v)
+
+
+@pytest.mark.parametrize("B,Lq,Lk", _TOKEN_SHAPES)
+def test_token_attention_kernel_is_fp32_accurate(cuda_device, B, Lq, Lk):
+    """The kernel takes the strided views as they lie, one launch a call,
+    the same bits twice; against a float64 eager core each row is within
+    2e-6 (relative L2; the kernel read at most 1.3e-6, the fp32 eager core
+    3.2e-6 at 2,048 keys), and at least 20× closer than TF32 products, the
+    precision below fp32."""
+    from signal_tpu_torch.ops.token_attention import eager_core, token_attention, \
+        token_attention_cuda
+
+    s = 147 ** -0.5
+    _, (q, k, v) = _token_qkv(B, Lq, Lk, s, cuda_device)
+    before = token_attention_cuda.launches
+    with torch.no_grad():
+        out, again = token_attention(q, k, v, s), token_attention(q, k, v, s)
+        torch.cuda.synchronize()
+        assert token_attention_cuda.launches - before == 2
+        assert out.shape == (B, Lq, 64) and torch.equal(out, again)
+        ref = eager_core(q.double(), k.double(), v.double(), s)
+        gap, tf32_gap = _row_gap(out, ref), _row_gap(_tf32_attention(q, k, v, s), ref)
+    assert gap <= 2e-6 and 20 * gap <= tf32_gap, (gap, tf32_gap)
+
+
+def test_token_attention_kernel_gradients_are_the_eager_ones(cuda_device):
+    """Autograd through the operator on the card (the kernel's forward, the
+    eager recomputing backward) gives the eager expression's output and
+    gradients, to the tolerances the CPU test holds the operator to."""
+    from signal_tpu_torch.ops.attention import true_fp32
+    from signal_tpu_torch.ops.token_attention import token_attention, token_attention_cuda
+
+    s = 576 ** -0.5
+    grads = []
+    for kernel in (True, False):
+        prods, (q, k, v) = _token_qkv(2, 300, 300, s, cuda_device, seed=3, grad=True)
+        before = token_attention_cuda.launches
+        if kernel:
+            out = token_attention(q, k, v, s)
+        else:
+            with true_fp32():
+                out = torch.softmax((q * s) @ k.transpose(1, 2), dim=-1) @ v
+        assert token_attention_cuda.launches - before == int(kernel)
+        g = torch.randn(out.shape, device=cuda_device,
+                        generator=torch.Generator(device=cuda_device).manual_seed(4))
+        grads.append((out.detach(), *torch.autograd.grad(out, prods, g)))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["head_dim_32", "bfloat16", "float64", "row_stride_66"])
+def test_token_attention_on_the_card_launches_the_kernel_or_raises(cuda_device, case):
+    """On the card the operator has one route: inputs the kernel cannot
+    take (another head dim, other dtypes) raise with no launch; fp32 at
+    head dim 64 in a row stride TMA cannot address (66 floats) is read
+    from a contiguous copy, one launch, as fp32-accurate as the views."""
+    from signal_tpu_torch.ops.token_attention import eager_core, token_attention, \
+        token_attention_cuda
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    dtype = {"bfloat16": torch.bfloat16, "float64": torch.float64}.get(case, torch.float32)
+    width = {"head_dim_32": 96, "row_stride_66": 198}.get(case, 192)
+    x = torch.randn(2, 50, width, device=cuda_device, generator=gen).to(dtype)
+    q, k, v = x[..., :width - 6].chunk(3, dim=-1) if case == "row_stride_66" else \
+        x.chunk(3, dim=-1)
+    before = token_attention_cuda.launches
+    with torch.no_grad():
+        if case != "row_stride_66":
+            with pytest.raises(ValueError, match="fp32 q"):
+                token_attention(q, k, v, 0.1)
+            assert token_attention_cuda.launches == before
+            return
+        out = token_attention(q, k, v, 0.1)
+        torch.cuda.synchronize()
+        ref = eager_core(q.double(), k.double(), v.double(), 0.1)
+    assert token_attention_cuda.launches - before == 1
+    assert _row_gap(out, ref) <= 2e-6
+
+
+def test_token_attention_kernel_spills_nothing_on_the_tensor_cores(cuda_device):
+    """The token attention kernel runs its products on the tensor cores
+    (warpgroup HGMMA in ``cuobjdump -sass``) and spills nothing."""
+    from signal_tpu_torch.ops import _build
+
+    try:
+        _build.cuda_tool("cuobjdump")
+    except RuntimeError:
+        pytest.skip("needs cuobjdump")
+    _build.build(["token_attention"])
+    report = _build.ptxas_report("token_attention")
+    hmma = _build.hmma_counts("token_attention")
+    assert len(report) == 1 and hmma.keys() == report.keys(), (report, hmma)
+    for fn, r in report.items():
+        assert hmma[fn] > 0 and r["spill_stores"] == r["spill_loads"] == 0, (fn, r, hmma)

@@ -23,7 +23,8 @@ from portbench.reference import t2t as ref_t2t
 from signal_tpu_torch.losses import make_loss, total_train_loss
 from signal_tpu_torch.models import signal_model as sm
 from signal_tpu_torch.models import t2t as tt2t
-from signal_tpu_torch.ops.token_attention import token_attention
+from signal_tpu_torch.ops import token_attention as ta
+from signal_tpu_torch.ops.token_attention import eager_core, token_attention, token_attention_cuda
 from signal_tpu_torch.utils import flops
 from signal_tpu_torch.utils.profiler import recording
 
@@ -161,6 +162,62 @@ def test_token_attention_gradcheck_in_float64():
     q, k, v = (torch.randn(2, 6, 4, generator=g, dtype=torch.float64, requires_grad=True)
                for _ in range(3))
     assert torch.autograd.gradcheck(lambda a, b, c: token_attention(a, b, c, 0.7), (q, k, v))
+
+
+def _token_views(B, L, width=192, dtype=torch.float32):
+    """q, k, v as ``token_transformer`` gives them: the ``.chunk(3, -1)``
+    views of a [B, L, width] qkv product (row stride ``width``)."""
+    g = torch.Generator().manual_seed(9)
+    return torch.randn(B, L, width, generator=g).to(dtype).chunk(3, dim=-1)
+
+
+@pytest.mark.parametrize("case", ["float32", "head_dim_32", "float64", "bfloat16"])
+def test_token_attention_takes_the_eager_core_off_the_card(case):
+    """Off the card every input takes the eager core, bit for bit, and no
+    kernel launch is counted: fp32 at head dim 64 as T2T gives it, another
+    head dim, float64 and bf16. The card's route takes only the first and
+    raises on the others, before any launch."""
+    width = 96 if case == "head_dim_32" else 192
+    dtype = {"float64": torch.float64, "bfloat16": torch.bfloat16}.get(case, torch.float32)
+    q, k, v = _token_views(2, 24, width, dtype)
+    launches = token_attention_cuda.launches
+    out = token_attention(q, k, v, 147 ** -0.5)
+    assert torch.equal(out, eager_core(q, k, v, 147 ** -0.5))
+    assert token_attention_cuda.launches == launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        token_attention_cuda(q, k, v, 147 ** -0.5)
+    if case == "float32":
+        assert all(a is b for a, b in zip(ta._operands(q, k, v), (q, k, v)))
+    else:
+        with pytest.raises(ValueError, match="fp32 q"):
+            ta._operands(q, k, v)
+
+
+def test_the_kernel_takes_what_tma_can_address():
+    """The kernel reads the qkv product's chunk views and contiguous
+    tensors as they lie; a row stride or base off a 16-byte multiple, a
+    batch stride that overlaps rows or a last stride other than 1 is read
+    from a contiguous copy of the same values; k and v of different
+    lengths, or an empty length, raise."""
+    q, k, v = _token_views(2, 24)
+    # the views, a contiguous tensor, a row stride of 528 B with its base 16 B in
+    for t in (q, k.contiguous(), torch.randn(2, 24, 132)[..., 4:68]):
+        assert ta._operands(t, k, v)[0] is t
+    misfits = [torch.randn(2, 24, 66)[..., :64],   # row stride 264 B
+               torch.randn(2, 24, 68)[..., 1:65],   # base 4 B in
+               torch.randn(1, 24, 64).expand(2, 24, 64),   # batch stride 0
+               v.transpose(1, 2).contiguous().transpose(1, 2)]   # last stride 24
+    for t in misfits:
+        for i in range(3):
+            args = [q, k, v]
+            args[i] = t
+            got = ta._operands(*args)
+            assert got[i] is not t and got[i].is_contiguous() and torch.equal(got[i], t)
+            assert got[i].data_ptr() % 16 == 0
+            assert all(got[j] is args[j] for j in range(3) if j != i)
+    for bad in ((q, k[:, :10], v), (q[:, :0], k, v), (q, k[:, :0], v[:, :0])):
+        with pytest.raises(ValueError, match="fp32 q"):
+            ta._operands(*bad)
 
 
 def test_t2t_span_and_call_counter():
